@@ -3,7 +3,7 @@
  *
  * The reference's runtime I/O layer is C++ (text loaders in
  * apex_svd_data.cpp, producer-thread prefetch in apex_buffer_loader.h);
- * this library is its TPU-framework counterpart: the host-side hot paths
+ * this library is its counterpart here: the host-side hot paths
  * (text parsing into 3-segment CSR, padded batch packing) implemented in
  * C++ and exposed through a plain C ABI for ctypes.  Pure-numpy fallbacks
  * exist for every entry point (svdfeature_tpu/data/native.py).

@@ -1,7 +1,7 @@
-"""svdfeature_tpu: a TPU-native feature-based matrix-factorization framework.
+"""svdfeature_tpu: a JAX feature-based matrix-factorization framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of SVDFeature
-(APEX Lab SJTU; reference at /root/reference): feature-based collaborative
+A ground-up JAX/XLA re-design of the capabilities of SVDFeature
+(APEX Lab SJTU): feature-based collaborative
 filtering with three sparse feature groups (global / user / item), covering
 plain MF, SVD++, neighborhood models, binary classification, and pairwise
 ranking — re-expressed as batched, sharded, functional computation:
@@ -10,8 +10,8 @@ ranking — re-expressed as batched, sharded, functional computation:
   apex_svd_base.h:456-462) becomes a fused, jit-compiled batched train step:
   gather -> weighted segment sums -> factor dot -> scatter-add update,
   scanned on-device over many batches per dispatch;
-* the SSE kernel layer (apex-tensor/) becomes XLA fusions plus Pallas TPU
-  kernels for the embedding gather/scatter hot path;
+* the SSE kernel layer (apex-tensor/) becomes XLA fusions: row gathers,
+  scatter-adds and sorted-dedup row writes on the embedding tables;
 * scaling is via a (data, model) jax.sharding.Mesh with row-sharded
   embedding tables (no analogue exists in the single-process reference).
 

@@ -11,8 +11,10 @@ def main(argv=None) -> int:
     if len(argv) < 1:
         print("Usage:<config> [xxx=xx]")
         return 0
+    from ..backend import enable_compile_cache
     from ..train.loop import SVDTrainTask
 
+    enable_compile_cache()
     SVDTrainTask().run(argv[0], argv[1:])
     return 0
 

@@ -12,8 +12,10 @@ def main(argv=None) -> int:
     if len(argv) < 1:
         print("Usage:<config> [xxx=xx]")
         return 0
+    from ..backend import enable_compile_cache
     from ..infer.task import SVDInferTask
 
+    enable_compile_cache()
     SVDInferTask().run(argv[0], argv[1:])
     return 0
 

@@ -1,6 +1,6 @@
 """Device batch packing: ragged 3-segment CSR -> fixed-shape padded arrays.
 
-The TPU-native replacement for the reference's per-example Elem views:
+The batched replacement for the reference's per-example Elem views:
 examples are packed into ``[T, B, S]`` index/value tensors (T batches of B
 rows, S = max nnz of the segment across the dataset) so one jit-compiled
 train step processes B examples, and one ``lax.scan`` processes the whole

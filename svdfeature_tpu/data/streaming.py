@@ -2,7 +2,7 @@
 
 The reference's reason for 4 MiB pages and the producer-thread double
 buffer (apex-utils/apex_buffer_loader.h:39-233, apex_svd_data.h:239-345)
-is training datasets that do not fit in memory.  The TPU-native
+is training datasets that do not fit in memory.  The batched
 equivalent: read the binary feature buffer incrementally in bounded
 CHUNKS of examples, pack each chunk on the host, and overlap the host
 read+pack+device transfer of chunk i+1 with the on-device training of

@@ -3,7 +3,7 @@
 Reference semantics: the per-row scalar walk ``RTreeTrainer::predict`` /
 ``get_leaf_id`` (apex_reg_tree.cpp:771-792) inside the per-tree sum of
 ``GBRTTrainer::forward`` (apex_gbrt.h:601-657).  The reference walks one
-node at a time per example on the CPU; the TPU-native re-design is
+node at a time per example on the CPU; the device re-design is
 level-synchronous and fully batched:
 
 * all trees are padded to a common node count and stacked into [T, M]

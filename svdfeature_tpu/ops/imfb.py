@@ -24,14 +24,15 @@ from .embed import (
     HyperParams,
     TrainConsts,
     TrainState,
+    forward_scores,
     _apply_factor_reg,
     _lazy_catchup,
+    _mm,
     _scatter_rows,
     _scatter_vals,
     _soft_threshold,
     _touch_counts,
     _update_global,
-    forward_scores,
 )
 
 
@@ -320,12 +321,12 @@ def train_epoch_imfb_carried(
         )
         delta = dtmp * (inv * gate)[:, None]
         dacc = dacc + delta
-        fb_sum = fb_sum + O @ delta
+        fb_sum = fb_sum + _mm(O, delta)
         if with_bias:
             dtmp_b = fb_bias * (jnp.power(db, nrow) - 1.0) + lr_fb * norm * S_b
             delta_b = dtmp_b * inv * gate
             dbacc = dbacc + delta_b
-            fb_bias = fb_bias + O @ delta_b
+            fb_bias = fb_bias + _mm(O, delta_b)
         return (st, cid, O, fb_sum, fb_bias, norm, inv, dacc, dbacc), None
 
     z = jnp.zeros((nseg, k), jnp.float32)
@@ -416,7 +417,6 @@ def _imfb_step_big(state, batch, cfb, enabled, lr, consts, hp, fb_hyper,
         delta_b,
         with_bias,
         k,
-        hp.row_dma,
     )
     return dataclasses.replace(st, w=w)
 
@@ -442,7 +442,7 @@ def train_epoch_imfb_big(
     big_embed.augment_state, ``hp.big_table`` set).  The reference trains
     extend_type=2 at any table size (apex_multi_imfb.h:31-194); this is
     the path that keeps that true past ONEHOT_THRESHOLD."""
-    assert hp.big_table and not hp.sweep_table
+    assert hp.big_table
     lr_fb = lr * scale_lr_ufeedback
     d = 1.0 - lr_fb * wd_ufeedback
     db = 1.0 - lr_fb * wd_ufeedback_bias

@@ -6,7 +6,7 @@ sum (prepare_ufeedback :523-538), train the rows sequentially while the
 feedback state evolves (update_svdpp :512-520), write the accumulated
 delta back scaled by 1/||feedback||^2 (update_ufeedback :539-554).
 
-TPU formulation (layout in data/batching_plus.py): each batch holds ONE
+Batched formulation (layout in data/batching_plus.py): each batch holds ONE
 row of each of G users; every step
 
   1. gathers its chunk's feedback pool and segment_sums the per-user
@@ -35,12 +35,15 @@ import jax.numpy as jnp
 
 from .. import losses
 from .embed import (
+    HIGHEST,
     HyperParams,
     TrainConsts,
     TrainState,
+    forward_scores,
     _apply_factor_reg,
     _can_fuse,
     _lazy_catchup,
+    _mm,
     _onehot,
     _scatter_rows,
     _scatter_vals,
@@ -49,16 +52,15 @@ from .embed import (
     _train_step_fused,
     _update_global,
     _use_onehot,
-    forward_scores,
 )
 
 
 def _fb_aggregates(w, b, cfb, nseg: int, with_bias: bool, force_onehot=None):
     """(fb_sum [nseg,k], norm [nseg], fb_bias [nseg]) from a chunk pool.
 
-    On TPU (small segment count) the three segment reductions are stacked
-    into ONE [F, k+2] payload applied by a single one-hot matmul — XLA
-    segment_sum lowers to a serializing scatter-add there.
+    In the one-hot form (backend capability row, or ``force_onehot``)
+    the three segment reductions are stacked into ONE [F, k+2] payload
+    applied by a single one-hot matmul; otherwise three segment_sums.
     """
     fval = cfb["fb_val"]
     use_onehot = (
@@ -70,7 +72,7 @@ def _fb_aggregates(w, b, cfb, nseg: int, with_bias: bool, force_onehot=None):
         rows = w[cfb["fb_idx"]] * fval[:, None]
         bcol = (b[cfb["fb_idx"]] * fval)[:, None] if with_bias else fval[:, None] * 0
         pay = jnp.concatenate([rows, bcol, (fval * fval)[:, None]], axis=1)
-        out = jnp.einsum("fn,fc->nc", A, pay, preferred_element_type=jnp.float32)
+        out = jnp.einsum("fn,fc->nc", A, pay, precision=HIGHEST)
         return out[:, :k], out[:, k + 1], out[:, k]
     rows = w[cfb["fb_idx"]] * fval[:, None]
     fb_sum = jax.ops.segment_sum(rows, cfb["fb_block"], num_segments=nseg)
@@ -88,8 +90,8 @@ def _fb_writeback(w, b, cfb, delta_pad, delta_b_pad, with_bias, force_onehot=Non
     """Scatter the per-user feedback delta over the pool rows.
 
     w[fb_idx_f] += delta[fb_block_f] * fval_f (and the bias analogue).
-    One-hot matmul form on TPU: one [F, N] one-hot read, [dw | db]
-    stacked, vs a serializing F-row scatter-add.
+    One-hot form: one [F, N] one-hot read, [dw | db] stacked; scatter
+    form: an F-row ``.at[].add``.
     """
     n_ui = w.shape[0]
     fval = cfb["fb_val"]
@@ -102,9 +104,9 @@ def _fb_writeback(w, b, cfb, delta_pad, delta_b_pad, with_bias, force_onehot=Non
             pay = jnp.concatenate(
                 [dw, (delta_b_pad[cfb["fb_block"]] * fval)[:, None]], axis=1
             )
-            out = jnp.einsum("fn,fc->nc", E, pay, preferred_element_type=jnp.float32)
+            out = jnp.einsum("fn,fc->nc", E, pay, precision=HIGHEST)
             return w + out[:, :k], b + out[:, k]
-        out = jnp.einsum("fn,fk->nk", E, dw, preferred_element_type=jnp.float32)
+        out = jnp.einsum("fn,fk->nk", E, dw, precision=HIGHEST)
         return w + out, b
     w = w.at[cfb["fb_idx"]].add(delta_pad[cfb["fb_block"]] * fval[:, None])
     if with_bias:
@@ -402,14 +404,14 @@ def train_epoch_plus(
         )
         delta_pad = jnp.concatenate([dtmp * inv[:, None], jnp.zeros((1, k))], 0)
         dacc = dacc + delta_pad
-        fb_sum = fb_sum + (O @ delta_pad)[:G]
+        fb_sum = fb_sum + _mm(O, delta_pad)[:G]
         if with_bias:
             dtmp_b = (
                 fb_bias * (jnp.power(db, m_g) - 1.0) + lr_fb * norm * err_g
             )
             delta_b_pad = jnp.concatenate([dtmp_b * inv, jnp.zeros((1,))])
             dbacc = dbacc + delta_b_pad
-            fb_bias = fb_bias + (O @ delta_b_pad)[:G]
+            fb_bias = fb_bias + _mm(O, delta_b_pad)[:G]
         return (st, cid, O, fb_sum, fb_bias, norm, inv, dacc, dbacc), None
 
     z = jnp.zeros((G, k), jnp.float32)

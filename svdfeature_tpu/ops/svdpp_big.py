@@ -1,10 +1,9 @@
 """Large-table SVD++ epoch: the train_epoch_plus algorithm on the
 augmented big-table layout (ops/big_embed.py).
 
-Above ONEHOT_THRESHOLD the small-table SVD++ machinery breaks down on
-TPU: per-batch row updates lower to XLA's serializing scatter and the
-chunk flush's [F, N] one-hot write grows linearly in the table size.
-This module keeps the exact chunk-carried algorithm of
+Above ONEHOT_THRESHOLD the small-table SVD++ layout stops fitting the
+job: its dense [N, k] per-batch updates and the chunk flush grow with
+the table size.  This module keeps the exact chunk-carried algorithm of
 ops/svdpp.train_epoch_plus — pack-time overlap matrices, fb_sum += O @
 delta closed form, pool touched twice per chunk (train_epoch_plus's
 docstring has the derivation; reference semantics prepare_ufeedback /
@@ -13,7 +12,7 @@ table-sized work through the big-table primitives:
 
   - per-batch row updates: big_embed._forward_entries (native row
     gathers + the SVD++ p_u_extra/bias_extra feedback injection) and
-    big_embed.apply_entries (sort -> dedup -> unique-row DMA write);
+    big_embed.apply_entries (sort -> dedup -> unique-row write);
   - chunk-boundary aggregates: gathers from the augmented table + the
     small [F, G+1] one-hot payload matmul (G is users-per-batch, never
     table-sized);
@@ -23,8 +22,7 @@ table-sized work through the big-table primitives:
 
 Requires common_feedback_space=0 (disjoint feedback rows — the same
 precondition as train_epoch_plus; the solver falls back to the
-small-table layout otherwise) and the dedup write path (SVD++ batches
-are far too sparse for the tile sweep).  Trajectory parity with
+small-table layout otherwise).  Trajectory parity with
 train_epoch_plus is pinned by tests/test_svdpp_big.py.
 """
 
@@ -45,11 +43,11 @@ from .big_embed import (
     sorted_dedup,
     write_rows_unique,
 )
-from .embed import TrainState
+from .embed import HIGHEST, TrainState, _mm
 from .svdpp import _fb_aggregates
 
 
-def _fb_writeback_big(w, cfb, delta_pad, delta_b_pad, with_bias, k, row_dma):
+def _fb_writeback_big(w, cfb, delta_pad, delta_b_pad, with_bias, k):
     """Accumulate the chunk's pool deltas into the augmented table.
 
     w[fb_idx_f, :k] += delta[fb_block_f] * fval_f (and the bias lane
@@ -69,14 +67,14 @@ def _fb_writeback_big(w, cfb, delta_pad, delta_b_pad, with_bias, k, row_dma):
         db = jnp.zeros_like(fval)
     pay = jnp.concatenate([dw, db[:, None]], axis=1)  # [F, k+1]
     order, si, acc, first, last = sorted_dedup(cfb["fb_idx"], pay)
-    old = gather_rows(w, si, row_dma=row_dma)  # [F, W]
+    old = gather_rows(w, si)  # [F, W]
     new_rows = old.at[:, :k].add(acc[:, :k])
     if with_bias:
         new_rows = new_rows.at[:, k].add(acc[:, k])
     is_real = last & (si != dummy)
     tgt = jnp.where(is_real, si, dummy)
     new_rows = jnp.where(is_real[:, None], new_rows, 0.0)
-    return write_rows_unique(w, tgt, new_rows, row_dma=row_dma)
+    return write_rows_unique(w, tgt, new_rows)
 
 
 # ---- overlap representations --------------------------------------------
@@ -106,9 +104,9 @@ def _ov_mul(O, d):
     if isinstance(O, tuple):
         dg, Pd = O
         if d.ndim == 2:
-            return dg[:, None] * d + Pd @ (Pd.T @ d)
-        return dg * d + Pd @ (Pd.T @ d)
-    return O @ d
+            return dg[:, None] * d + _mm(Pd, _mm(Pd.T, d))
+        return dg * d + _mm(Pd, _mm(Pd.T, d))
+    return _mm(O, d)
 
 
 def _forward_entries_carry(
@@ -166,16 +164,16 @@ def _forward_entries_carry(
     bu_g = uslab[:, k]
     uv = u_val[:, 0].reshape(G, M)  # padded slots are 0
     p_u = (uv[..., None] * wu_g[:, None, :]).reshape(B, k)
-    p_i = jnp.einsum("bs,bsk->bk", i_val, wi)
+    p_i = jnp.einsum("bs,bsk->bk", i_val, wi, precision=HIGHEST)
     if p_u_extra is not None:
         p_u = p_u + p_u_extra
     score = hp.base_score + _gather_sum(g, g_idx, batch["g_val"])
-    score = score + jnp.einsum("bs,bs->b", i_val, bi)
+    score = score + jnp.einsum("bs,bs->b", i_val, bi, precision=HIGHEST)
     if not hp.no_user_bias:
         score = score + (uv * bu_g[:, None]).reshape(B)
         if bias_extra is not None:
             score = score + bias_extra
-    score = score + jnp.einsum("bk,bk->b", p_u, p_i)
+    score = score + jnp.einsum("bk,bk->b", p_u, p_i, precision=HIGHEST)
     pred = losses.map_active(score, hp.active_type)
     err = losses.cal_grad(batch["label"], pred, hp.active_type) * batch["weight"]
     lr_err = lr * err
@@ -204,7 +202,7 @@ def _forward_entries_carry(
 
     # ---- dense per-user updates for the slab ----------------------------
     coef_u = (lr_err * u_val[:, 0]).reshape(G, M)
-    du = jnp.einsum("gm,gmk->gk", coef_u, p_i.reshape(G, M, k))
+    du = jnp.einsum("gm,gmk->gk", coef_u, p_i.reshape(G, M, k), precision=HIGHEST)
     dbu = jnp.zeros((G,), f32) if hp.no_user_bias else coef_u.sum(axis=1)
     cu_g = (u_idx[:, 0] != dummy).astype(f32).reshape(G, M).sum(axis=1)
 
@@ -262,7 +260,7 @@ def _epoch_carry(
 
     def write_uslab(w, ids, uslab):
         rows = jnp.where((ids != dummy)[:, None], uslab, 0.0)
-        return write_rows_unique(w, ids, rows, row_dma=hp.row_dma)
+        return write_rows_unique(w, ids, rows)
 
     def body(carry, xs):
         st, pc, O, fb_sum, fb_bias, norm, inv, dacc, dbacc, uslab, wdu = carry
@@ -427,8 +425,8 @@ def train_epoch_plus_big_impl(
     Same carried-state recurrence as ops/svdpp.train_epoch_plus (see
     its docstring for the closed-form derivation and the M-wide Jacobi
     damping); only the table-sized reads/writes differ.  ``state`` must
-    be in the augmented layout (big_embed.augment_state, no tile
-    padding) with ``hp.big_table`` set.
+    be in the augmented layout (big_embed.augment_state) with
+    ``hp.big_table`` set.
 
     carry_users=True (requires fb["chunk_users"] [C, G] and the classic
     SVD++ user layout — one constant id per unit, Su == 1,
@@ -436,7 +434,7 @@ def train_epoch_plus_big_impl(
     solvers/svdpp._carry_users_plan) keeps the chunk's G user rows in
     the scan carry: gathered once at chunk entry, updated densely per
     batch (_update_uslab — the apply_entries math), written back once
-    at chunk exit.  This is the TPU form of the reference's locality
+    at chunk exit.  This is the batched form of the reference's locality
     (the user block stays hot in cache while its rows stream,
     apex_svd_base.h:523-554): it halves the per-batch entry stream —
     sort, payload permute/cumsum, and unique-row writes all shrink by
@@ -444,7 +442,7 @@ def train_epoch_plus_big_impl(
     (scripts/prof_svdpp_big.py).  Trajectory is bit-equal to the
     non-carry path modulo float association (tests/test_svdpp_big.py).
     """
-    assert hp.big_table and not hp.sweep_table
+    assert hp.big_table
     if carry_users:
         assert hp.reg_method < 4, "carry path is eager-reg only"
     T, GS = stacked["label"].shape
@@ -466,7 +464,6 @@ def train_epoch_plus_big_impl(
         )
         w = _fb_writeback_big(
             st.w, cfb, dacc, dbacc if with_bias else None, with_bias, k,
-            hp.row_dma,
         )
         return dataclasses.replace(st, w=w)
 

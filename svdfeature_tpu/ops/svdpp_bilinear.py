@@ -24,7 +24,14 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from .embed import HyperParams, TrainConsts, TrainState, _soft_threshold
+from .embed import (
+    HIGHEST,
+    HyperParams,
+    TrainConsts,
+    TrainState,
+    _mm,
+    _soft_threshold,
+)
 from .svdpp import (
     _fb_aggregates,
     _fb_writeback,
@@ -37,8 +44,8 @@ from .svdpp import (
 def _bi_bias(W_bi_pad, up_slot, i_idx_local, i_val):
     """[G] plugin bias: sum_s i_val[g,s] * <W_bi[lid], up[g]>."""
     rows = W_bi_pad[i_idx_local]  # [G, S, nbf]
-    per = jnp.einsum("gsn,gn->gs", rows, up_slot)
-    return jnp.einsum("gs,gs->g", per, i_val)
+    per = jnp.einsum("gsn,gn->gs", rows, up_slot, precision=HIGHEST)
+    return jnp.einsum("gs,gs->g", per, i_val, precision=HIGHEST)
 
 
 def _local_item_ids(i_idx, off_item, num_item):
@@ -203,14 +210,14 @@ def train_epoch_bi(
         )
         delta_pad = jnp.concatenate([dtmp * inv[:, None], jnp.zeros((1, k))], 0)
         dacc = dacc + delta_pad
-        fb_sum = fb_sum + (O @ delta_pad)[:G]
+        fb_sum = fb_sum + _mm(O, delta_pad)[:G]
         if with_bias:
             dtmp_b = (
                 fb_bias * (jnp.power(db, m_g) - 1.0) + lr_fb * norm * err_g
             )
             delta_b_pad = jnp.concatenate([dtmp_b * inv, jnp.zeros((1,))])
             dbacc = dbacc + delta_b_pad
-            fb_bias = fb_bias + (O @ delta_b_pad)[:G]
+            fb_bias = fb_bias + _mm(O, delta_b_pad)[:G]
         return (st, Wb, cid, O, fb_sum, fb_bias, norm, inv, dacc, dbacc), None
 
     z = jnp.zeros((G, k), jnp.float32)
@@ -227,7 +234,7 @@ def train_epoch_bi(
     return state, W_bi_pad[:-1]
 
 
-def _bi_step_big(W_bi_pad, up_slot, batch, err, lr_bi, wd_bi, reg_bi, off_item, row_dma):
+def _bi_step_big(W_bi_pad, up_slot, batch, err, lr_bi, wd_bi, reg_bi, off_item):
     """_bi_step on a large W_bi: touched-rows-only gather -> sorted-dedup
     merge -> ONE unique-row write (ops/big_embed primitives), instead of
     the table-sized .at[].add + whole-table decay.  Identical math: only
@@ -259,7 +266,7 @@ def _bi_step_big(W_bi_pad, up_slot, batch, err, lr_bi, wd_bi, reg_bi, off_item, 
     else:
         raise ValueError(f"unknown bi feedback decay method {reg_bi}")
     order, si, acc, first, last = sorted_dedup(lid.reshape(-1), pay)
-    old = gather_rows(W_bi_pad, si, row_dma=row_dma)  # [E, nbf]
+    old = gather_rows(W_bi_pad, si)  # [E, nbf]
     new = old + acc[:, :nbf]
     if reg_bi == 0:
         new = new * jnp.power(1.0 - lam, acc[:, nbf:])
@@ -272,7 +279,7 @@ def _bi_step_big(W_bi_pad, up_slot, batch, err, lr_bi, wd_bi, reg_bi, off_item, 
     is_real = last & (si != num_item)
     tgt = jnp.where(is_real, si, num_item)
     new = jnp.where(is_real[:, None], new, 0.0)
-    return write_rows_unique(W_bi_pad, tgt, new, row_dma=row_dma)
+    return write_rows_unique(W_bi_pad, tgt, new)
 
 
 @partial(
@@ -317,7 +324,7 @@ def train_epoch_bi_big(
     )
     from .svdpp_big import _fb_writeback_big
 
-    assert hp.big_table and not hp.sweep_table
+    assert hp.big_table
     T, GS = stacked["label"].shape
     M = rows_per_user
     G = GS // M
@@ -337,7 +344,6 @@ def train_epoch_bi_big(
         cfb = jax.tree.map(lambda a: a[cid], fb)
         w = _fb_writeback_big(
             st.w, cfb, dacc, dbacc if with_bias else None, with_bias, k,
-            hp.row_dma,
         )
         return dataclasses.replace(st, w=w)
 
@@ -369,9 +375,9 @@ def train_epoch_bi_big(
         up_slot = up[cid][:G]  # [G, nbf]
         up_rep = jnp.repeat(up_slot, M, axis=0) if M > 1 else up_slot
         lid, _ = _local_item_ids(batch["i_idx"], off_item, num_item)
-        rows_bi = gather_rows(Wb, lid, row_dma=hp.row_dma)  # [GS, S, nbf]
-        per = jnp.einsum("gsn,gn->gs", rows_bi, up_rep)
-        plug = jnp.einsum("gs,gs->g", per, batch["i_val"])
+        rows_bi = gather_rows(Wb, lid)  # [GS, S, nbf]
+        per = jnp.einsum("gsn,gn->gs", rows_bi, up_rep, precision=HIGHEST)
+        plug = jnp.einsum("gs,gs->g", per, batch["i_val"], precision=HIGHEST)
         fb_slot = jnp.repeat(fb_sum, M, axis=0) if M > 1 else fb_sum
         fbb_slot = (
             (jnp.repeat(fb_bias, M) if M > 1 else fb_bias)
@@ -395,7 +401,6 @@ def train_epoch_bi_big(
         )
         Wb = _bi_step_big(
             Wb, up_rep, batch, err, lr_bi, wd_bi, reg_bi, off_item,
-            hp.row_dma,
         )
         # feedback recurrence — identical math to train_epoch_bi
         present = batch["weight"]
@@ -413,14 +418,14 @@ def train_epoch_bi_big(
         )
         delta_pad = jnp.concatenate([dtmp * inv[:, None], jnp.zeros((1, k))], 0)
         dacc = dacc + delta_pad
-        fb_sum = fb_sum + (O @ delta_pad)[:G]
+        fb_sum = fb_sum + _mm(O, delta_pad)[:G]
         if with_bias:
             dtmp_b = (
                 fb_bias * (jnp.power(db, m_g) - 1.0) + lr_fb * norm * err_g
             )
             delta_b_pad = jnp.concatenate([dtmp_b * inv, jnp.zeros((1,))])
             dbacc = dbacc + delta_b_pad
-            fb_bias = fb_bias + (O @ delta_b_pad)[:G]
+            fb_bias = fb_bias + _mm(O, delta_b_pad)[:G]
         return (st, Wb, cid, O, fb_sum, fb_bias, norm, inv, dacc, dbacc), None
 
     z = jnp.zeros((G, k), jnp.float32)

@@ -25,7 +25,13 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from .. import losses
-from ..ops.embed import HyperParams, TrainConsts, TrainState, _soft_threshold
+from ..ops.embed import (
+    HIGHEST,
+    HyperParams,
+    TrainConsts,
+    TrainState,
+    _soft_threshold,
+)
 from ..ops.svdpp import _fb_writeback
 from .mesh import (
     _apply_row_updates,
@@ -90,13 +96,14 @@ def _bi_plug_and_update(
 
 
 def _seg_add(dst, idx, pay, n):
-    """dst[idx] += pay via the one-hot MXU matmul when profitable."""
+    """dst[idx] += pay via the one-hot matmul where the backend's
+    capability row asks for it, else a scatter-add."""
     from ..ops.embed import _onehot, _use_onehot
 
     if _use_onehot(n):
         A = _onehot(idx, n)
         return dst + jnp.einsum("en,ec->nc", A, pay,
-                                preferred_element_type=jnp.float32)
+                                precision=HIGHEST)
     return dst.at[idx].add(pay)
 
 
@@ -172,9 +179,9 @@ def _make_bilinear_body(
         bown = (bloc >= 0) & (bloc < nb_local) & (lid >= 0)
         blocc = jnp.where(bown, bloc, dummy_bi)
         rows_bi = jnp.where(bown[..., None], Wb[blocc], 0.0)  # [g,S,nbf]
-        per = jnp.einsum("gsn,gn->gs", rows_bi, up_g)
+        per = jnp.einsum("gsn,gn->gs", rows_bi, up_g, precision=HIGHEST)
         plug = jax.lax.psum(
-            jnp.einsum("gs,gs->g", per, batch["i_val"]), "model"
+            jnp.einsum("gs,gs->g", per, batch["i_val"], precision=HIGHEST), "model"
         )
 
         # ---- forward (plug outside the no_user_bias gate, like
@@ -183,10 +190,9 @@ def _make_bilinear_body(
         p_u = p_u + fb_sum[slot]
         if with_bias:
             bias = bias + fb_bias[slot]
-        score = hp.base_score + bias + plug + jnp.einsum("bk,bk->b", p_u, p_i)
+        score = hp.base_score + bias + plug + jnp.einsum("bk,bk->b", p_u, p_i, precision=HIGHEST)
         score = score + jnp.einsum(
-            "bs,bs->b", batch["g_val"], gbias[batch["g_idx"]]
-        )
+            "bs,bs->b", batch["g_val"], gbias[batch["g_idx"]], precision=HIGHEST)
         pred = losses.map_active(score, hp.active_type)
         err = losses.cal_grad(batch["label"], pred, hp.active_type) * batch["weight"]
 
@@ -409,18 +415,17 @@ def sharded_bilinear_predict(
             bown = (bloc >= 0) & (bloc < nb_local) & (lid >= 0)
             blocc = jnp.where(bown, bloc, dummy_bi)
             rows_bi = jnp.where(bown[..., None], Wb[blocc], 0.0)
-            per = jnp.einsum("gsn,gn->gs", rows_bi, up_g)
+            per = jnp.einsum("gsn,gn->gs", rows_bi, up_g, precision=HIGHEST)
             plug = jax.lax.psum(
-                jnp.einsum("gs,gs->g", per, batch["i_val"]), "model"
+                jnp.einsum("gs,gs->g", per, batch["i_val"], precision=HIGHEST), "model"
             )
             p_u, p_i, bias = _sharded_forward(w, b, batch, hp, lo, n_local, dummy)
             p_u = p_u + agg[:, :k][slot]
             if with_bias:
                 bias = bias + agg[:, k][slot]
-            score = hp.base_score + bias + plug + jnp.einsum("bk,bk->b", p_u, p_i)
+            score = hp.base_score + bias + plug + jnp.einsum("bk,bk->b", p_u, p_i, precision=HIGHEST)
             score = score + jnp.einsum(
-                "bs,bs->b", batch["g_val"], gbias[batch["g_idx"]]
-            )
+                "bs,bs->b", batch["g_val"], gbias[batch["g_idx"]], precision=HIGHEST)
             return None, losses.map_active(score, hp.active_type)
 
         _, preds = jax.lax.scan(body, None, (stacked, chunk_id))

@@ -2,8 +2,8 @@
 extend_type=15.
 
 parallel/bilinear_mesh.py applies its W_bi updates and unified-table
-row updates with the one-hot MXU form, which caps out at
-ONEHOT_THRESHOLD local rows.  This module composes the big-slab SVD++
+row updates on standard slabs (one-hot form up to
+ONEHOT_THRESHOLD local rows).  This module composes the big-slab SVD++
 body (parallel/svdpp_mesh_big.py — augmented slabs, sorted-dedup
 unique-row writes) with the bilinear plugin:
 
@@ -42,7 +42,13 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from .. import losses
 from ..ops.big_embed import apply_entries, gather_rows, sorted_dedup, write_rows_unique
-from ..ops.embed import HyperParams, TrainConsts, TrainState, _soft_threshold
+from ..ops.embed import (
+    HIGHEST,
+    HyperParams,
+    TrainConsts,
+    TrainState,
+    _soft_threshold,
+)
 from ..ops.svdpp_big import _fb_writeback_big
 from .mesh import _count_present, _global_update_psum, _seg_sum, _seg_sum_stacked
 from .mesh_big import _fwd_big
@@ -86,7 +92,7 @@ def unshard_bi_big(Wb, n_model: int, nb_real: int, num_item: int):
 
 def _bi_update_big(
     Wb, up_full, lid_all, coef_all, vals_all, g_of_entry, lo_bi, nb_real,
-    lr_bi, wd_bi, reg_bi, row_dma,
+    lr_bi, wd_bi, reg_bi,
 ):
     """W_bi slab update from all-gathered (item, coef, i_val) entries —
     the mesh form of ops/svdpp_bilinear._bi_step_big.  Non-owned entries
@@ -111,7 +117,7 @@ def _bi_update_big(
     else:
         raise ValueError(f"unknown bi feedback decay method {reg_bi}")
     order, si, acc, first, last = sorted_dedup(locc, pay)
-    old = gather_rows(Wb, si, row_dma=row_dma)
+    old = gather_rows(Wb, si)
     new = old + acc[:, :nbf]
     if reg_bi == 0:
         new = new * jnp.power(1.0 - lam, acc[:, nbf:])
@@ -124,10 +130,10 @@ def _bi_update_big(
     is_real = last & (si != scratch)
     tgt = jnp.where(is_real, si, scratch)
     new = jnp.where(is_real[:, None], new, 0.0)
-    return write_rows_unique(Wb, tgt, new, row_dma=row_dma)
+    return write_rows_unique(Wb, tgt, new)
 
 
-def _bi_plug_big(Wb, up_g, batch, off_item, num_item, lo_bi, nb_real, row_dma):
+def _bi_plug_big(Wb, up_g, batch, off_item, num_item, lo_bi, nb_real):
     """Masked local plugin bias: per-shard partial, caller psums over
     ``model`` (get_bias_plugin, apex_svd_bilinear.h:141-168)."""
     scratch = nb_real
@@ -135,10 +141,10 @@ def _bi_plug_big(Wb, up_g, batch, off_item, num_item, lo_bi, nb_real, row_dma):
     bloc = lid - lo_bi
     bown = (bloc >= 0) & (bloc < nb_real) & (lid >= 0) & (lid < num_item)
     blocc = jnp.where(bown, bloc, scratch)
-    rows_bi = gather_rows(Wb, blocc, row_dma=row_dma)  # [g, S, nbf]
+    rows_bi = gather_rows(Wb, blocc)  # [g, S, nbf]
     rows_bi = jnp.where(bown[..., None], rows_bi, 0.0)
-    per = jnp.einsum("gsn,gn->gs", rows_bi, up_g)
-    return jnp.einsum("gs,gs->g", per, batch["i_val"]), lid
+    per = jnp.einsum("gsn,gn->gs", rows_bi, up_g, precision=HIGHEST)
+    return jnp.einsum("gs,gs->g", per, batch["i_val"], precision=HIGHEST), lid
 
 
 def _make_bilinear_body_big(
@@ -181,7 +187,7 @@ def _make_bilinear_body_big(
         own = (loc >= 0) & (loc < n_real)
         locc = jnp.where(own, loc, scratch)
         v = jnp.where(own, sv, 0.0)
-        rows = gather_rows(w, locc, row_dma=hp.row_dma)
+        rows = gather_rows(w, locc)
         agg = _seg_sum_stacked(
             nseg,
             sb,
@@ -217,7 +223,7 @@ def _make_bilinear_body_big(
         # ---- plugin bias: masked local W_bi gather, psum over model
         up_g = up_c[slot]  # [g_local, nbf]
         plug_local, lid = _bi_plug_big(
-            Wb, up_g, batch, off_item, num_item, lo_bi, nb_real, hp.row_dma
+            Wb, up_g, batch, off_item, num_item, lo_bi, nb_real
         )
         plug = jax.lax.psum(plug_local, "model")
 
@@ -274,8 +280,8 @@ def _make_bilinear_body_big(
         payload = jnp.concatenate(
             [dw, pay_b[:, None], cnt_u[:, None], cnt_i[:, None]], axis=1
         )
-        raw_u = gather_rows(w, g_lu.reshape(-1), row_dma=hp.row_dma)
-        raw_i = gather_rows(w, g_li.reshape(-1), row_dma=hp.row_dma)
+        raw_u = gather_rows(w, g_lu.reshape(-1))
+        raw_i = gather_rows(w, g_li.reshape(-1))
         w = apply_entries(
             w, step0, ent_idx, payload, raw_u, raw_i,
             raw_u[:, :k], raw_i[:, :k], lr, consts, hp,
@@ -297,7 +303,7 @@ def _make_bilinear_body_big(
         vals_all = jnp.where(valid, vals_all, 0.0)
         Wb = _bi_update_big(
             Wb, up_c, lid_all, coefb_all, vals_all, g_of_entry, lo_bi,
-            nb_real, lr_bi, wd_bi, reg_bi, hp.row_dma,
+            nb_real, lr_bi, wd_bi, reg_bi,
         )
 
         # ---- feedback writeback: replicated delta over the FULL pool,
@@ -337,7 +343,7 @@ def _make_bilinear_body_big(
             "fb_block": cfb["fb_block"],
         }
         w = _fb_writeback_big(
-            w, cfb_local, delta, delta_b, with_bias, k, hp.row_dma
+            w, cfb_local, delta, delta_b, with_bias, k
         )
 
         nstep = step0 + _count_present(batch)
@@ -458,7 +464,7 @@ def sharded_bilinear_predict_big(
             own = (loc >= 0) & (loc < n_real)
             locc = jnp.where(own, loc, scratch)
             v = jnp.where(own, sv, 0.0)
-            rows = gather_rows(w, locc, row_dma=hp.row_dma)
+            rows = gather_rows(w, locc)
             agg = _seg_sum_stacked(
                 nseg, sb,
                 jnp.concatenate(
@@ -469,7 +475,6 @@ def sharded_bilinear_predict_big(
             agg = jax.lax.psum(jax.lax.psum(agg, "model"), "data")
             plug_local, _ = _bi_plug_big(
                 Wb, up[cid][slot], batch, off_item, num_item, lo_bi, nb_real,
-                hp.row_dma,
             )
             plug = jax.lax.psum(plug_local, "model")
             _, _, score, _, _ = _fwd_big(

@@ -18,7 +18,7 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from .. import losses
-from ..ops.embed import HyperParams, TrainConsts, TrainState
+from ..ops.embed import HIGHEST, HyperParams, TrainConsts, TrainState
 from ..ops.svdpp import _fb_writeback
 from .mesh import (
     _apply_row_updates,
@@ -95,10 +95,9 @@ def _make_imfb_body(
         p_u = p_u + fb_sum[ctx].sum(axis=1)
         if with_bias:
             bias = bias + fb_bias[ctx].sum(axis=1)
-        score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i)
+        score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i, precision=HIGHEST)
         score = score + jnp.einsum(
-            "bs,bs->b", batch["g_val"], gbias[batch["g_idx"]]
-        )
+            "bs,bs->b", batch["g_val"], gbias[batch["g_idx"]], precision=HIGHEST)
         pred = losses.map_active(score, hp.active_type)
         err = losses.cal_grad(batch["label"], pred, hp.active_type) * batch["weight"]
 
@@ -316,10 +315,9 @@ def sharded_imfb_predict(
             p_u = p_u + agg[:, :k][ctx].sum(axis=1)
             if with_bias:
                 bias = bias + agg[:, k][ctx].sum(axis=1)
-            score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i)
+            score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i, precision=HIGHEST)
             score = score + jnp.einsum(
-                "bs,bs->b", batch["g_val"], gbias[batch["g_idx"]]
-            )
+                "bs,bs->b", batch["g_val"], gbias[batch["g_idx"]], precision=HIGHEST)
             return None, losses.map_active(score, hp.active_type)
 
         _, preds = jax.lax.scan(body, None, (stacked, chunk_id))

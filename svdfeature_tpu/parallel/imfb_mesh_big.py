@@ -2,8 +2,8 @@
 stacked-context solver (extend_type=2).
 
 parallel/imfb_mesh.py's step body applies its row updates and context
-writebacks with the one-hot MXU form, which caps out at ONEHOT_THRESHOLD
-local rows; parallel/mesh_big.py removes that limit for the base solver
+writebacks on standard slabs (one-hot form up to ONEHOT_THRESHOLD local
+rows); parallel/mesh_big.py removes that limit for the base solver
 and parallel/svdpp_mesh_big.py for SVD++.  This module is the stacked-
 context member of the family — the per-batch-refresh imfb step of
 imfb_mesh with every table-sized read/write routed through the big-table
@@ -90,7 +90,7 @@ def _make_imfb_body_big(
         own = (loc >= 0) & (loc < n_real)
         locc = jnp.where(own, loc, scratch)
         v = jnp.where(own, sv, 0.0)
-        rows = gather_rows(w, locc, row_dma=hp.row_dma)  # [f_local, W]
+        rows = gather_rows(w, locc)  # [f_local, W]
         agg = _seg_sum_stacked(
             nseg,
             sc,
@@ -177,8 +177,8 @@ def _make_imfb_body_big(
         payload = jnp.concatenate(
             [dw, pay_b[:, None], cnt_u[:, None], cnt_i[:, None]], axis=1
         )
-        raw_u = gather_rows(w, g_lu.reshape(-1), row_dma=hp.row_dma)
-        raw_i = gather_rows(w, g_li.reshape(-1), row_dma=hp.row_dma)
+        raw_u = gather_rows(w, g_lu.reshape(-1))
+        raw_i = gather_rows(w, g_li.reshape(-1))
         w = apply_entries(
             w, step0, ent_idx, payload, raw_u, raw_i,
             raw_u[:, :k], raw_i[:, :k], lr, consts, hp,
@@ -254,7 +254,7 @@ def _make_imfb_body_big(
             "fb_block": cfb["fb_ctx"],
         }
         w = _fb_writeback_big(
-            w, cfb_local, delta, delta_b, with_bias, k, hp.row_dma
+            w, cfb_local, delta, delta_b, with_bias, k
         )
 
         nstep = step0 + _count_present(batch)
@@ -375,7 +375,7 @@ def sharded_imfb_predict_big(
             own = (loc >= 0) & (loc < n_real)
             locc = jnp.where(own, loc, scratch)
             v = jnp.where(own, sv, 0.0)
-            rows = gather_rows(w, locc, row_dma=hp.row_dma)
+            rows = gather_rows(w, locc)
             agg = _seg_sum_stacked(
                 nseg, sc,
                 jnp.concatenate(

@@ -10,7 +10,7 @@ the net-new distributed layer.  Design (scaling-book recipe):
 * Embedding lookup on a row-sharded table = *masked local gather + psum*:
   each shard gathers only the ids it owns (others hit its local dummy row)
   and the partial weighted sums are psum-reduced over ``model``.  The
-  communication is O(B·k) activations over ICI — never the table.
+  communication is O(B·k) activations between devices — never the table.
 * Scatter-add update: each shard applies only the updates whose target row
   it owns (ids outside the local range are redirected to the local dummy
   row); no gradient communication for the table at all.
@@ -35,7 +35,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from .. import losses
-from ..ops.embed import HyperParams, TrainConsts, TrainState
+from ..ops.embed import HIGHEST, HyperParams, TrainConsts, TrainState
 
 
 def init_distributed(
@@ -75,11 +75,13 @@ def init_distributed(
 def make_mesh(
     n_data: int, n_model: int, devices: Optional[Sequence] = None
 ) -> Mesh:
-    """(data x model) mesh.  Multi-host: the model axis is kept within a
-    host's ICI domain and data spans hosts, so the per-batch psum over
+    """(data x model) mesh, a plain reshape of the devices: the cards of
+    one host reach each other all to all over NVLink, so the placement
+    follows the algorithm alone.  Multi-host: the model axis is kept
+    within a host and data spans hosts, so the per-batch psum over
     ``model`` (the latency-critical collective of the masked-gather
-    forward) rides ICI while only the data-axis reductions cross DCN —
-    the hybrid-mesh recipe of the scaling playbook."""
+    forward) stays inside the host while only the data-axis reductions
+    cross hosts."""
     if devices is None and jax.process_count() > 1:
         from jax.experimental import mesh_utils
 
@@ -191,8 +193,8 @@ def _local_gather_sum(tab, idx, val, lo, n_local, dummy_local):
     v = jnp.where(own, val, 0.0)
     rows = tab[loc]
     if tab.ndim == 2:
-        return jnp.einsum("bs,bsk->bk", v, rows)
-    return jnp.einsum("bs,bs->b", v, rows)
+        return jnp.einsum("bs,bsk->bk", v, rows, precision=HIGHEST)
+    return jnp.einsum("bs,bs->b", v, rows, precision=HIGHEST)
 
 
 def _local_ids(idx, val, lo, n_local, dummy_local):
@@ -218,29 +220,29 @@ def _sharded_forward(w, b, batch, hp, lo, n_local, dummy):
 
 
 def _seg_sum(n, idx, val):
-    """sum of val into bins idx — one-hot MXU form on TPU (XLA scatter-add
-    serializes there; ops/embed one-hot rationale), .at[].add elsewhere."""
+    """sum of val into bins idx — the one-hot form where the backend's
+    capability row asks for it (ops/embed._use_onehot), .at[].add
+    otherwise."""
     from ..ops.embed import _onehot, _use_onehot
 
     fidx = idx.reshape(-1)
     fval = val.reshape(-1)
     if _use_onehot(n):
         E = _onehot(fidx, n)
-        return jnp.einsum(
-            "en,e->n", E, fval, preferred_element_type=jnp.float32
-        )
+        return jnp.einsum("en,e->n", E, fval, precision=HIGHEST)
     return jnp.zeros((n,), jnp.float32).at[fidx].add(fval)
 
 
 def _seg_sum_stacked(nseg, idx, pay):
     """Row-payload segment sum: pay [E, C] into [nseg, C] bins — ONE
-    one-hot MXU matmul on TPU (stacking columns shares the one-hot read,
-    the ops/embed._train_step_fused trick), segment_sum elsewhere."""
+    one-hot matmul in the one-hot form (stacking columns shares the
+    one-hot read, the ops/embed._train_step_fused trick), segment_sum
+    otherwise."""
     from ..ops.embed import _onehot, _use_onehot
 
     if _use_onehot(nseg):
         A = _onehot(idx, nseg)  # [E, nseg]
-        return jnp.einsum("en,ec->nc", A, pay, preferred_element_type=jnp.float32)
+        return jnp.einsum("en,ec->nc", A, pay, precision=HIGHEST)
     return jax.ops.segment_sum(pay, idx, num_segments=nseg)
 
 
@@ -257,8 +259,8 @@ def _global_update_psum(g, batch, err, lr):
 
 def _apply_row_updates(w, b, batch, lr_err, p_u, p_i, hp, lo, n_local, dummy):
     """All-gathered sparse updates, applied identically by every data
-    replica of a model shard — comm is O(D*B*k) activations over ICI,
-    never O(N*k) table gradients.  Returns the updated local slabs."""
+    replica of a model shard — comm is O(D*B*k) activations between
+    devices, never O(N*k) table gradients.  Returns the updated local slabs."""
     u_idx, u_val = batch["u_idx"], batch["u_val"]
     i_idx, i_val = batch["i_idx"], batch["i_val"]
     lu_idx, lu_val = _local_ids(u_idx, u_val, lo, n_local, dummy)
@@ -272,9 +274,9 @@ def _apply_row_updates(w, b, batch, lr_err, p_u, p_i, hp, lo, n_local, dummy):
     k = w.shape[1]
     D, B, Su = g_lu.shape
     Si = g_li.shape[2]
-    # one-hot MXU form for slabs under the threshold, .at[].add fallback
-    # (CPU / big slabs) — ops/embed._scatter_rows auto-selects, same as
-    # the single-device step (XLA TPU scatter-adds serialize)
+    # ops/embed._scatter_rows picks the form, same as the single-device
+    # step (one-hot for slabs under the threshold where the backend's
+    # capability row asks for it, .at[].add otherwise)
     from ..ops.embed import _scatter_rows, _scatter_vals
 
     w = _scatter_rows(w, g_lu.reshape(D * B, Su), g_cu.reshape(D * B, Su),
@@ -418,10 +420,9 @@ def _make_step_body(hp: HyperParams, n_pad: int, n_model: int):
 
         # ---- forward: masked local gathers, psum over model
         p_u, p_i, bias = _sharded_forward(w, b, batch, hp, lo, n_local, dummy)
-        score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i)
+        score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i, precision=HIGHEST)
         score = score + jnp.einsum(
-            "bs,bs->b", batch["g_val"], g[batch["g_idx"]]
-        )  # g replicated
+            "bs,bs->b", batch["g_val"], g[batch["g_idx"]], precision=HIGHEST)  # g replicated
         pred = losses.map_active(score, hp.active_type)
         err = losses.cal_grad(batch["label"], pred, hp.active_type) * batch["weight"]
 
@@ -560,10 +561,9 @@ def sharded_predict(mesh: Mesh, hp: HyperParams, n_pad: int):
             p_u, p_i, bias = _sharded_forward(w, b, batch, hp, lo, n_local, dummy)
             # g is replicated: full local gather, no psum
             g_term = jnp.einsum(
-                "bs,bs->b", batch["g_val"], g[batch["g_idx"]]
-            )
+                "bs,bs->b", batch["g_val"], g[batch["g_idx"]], precision=HIGHEST)
             score = hp.base_score + g_term + bias
-            score = score + jnp.einsum("bk,bk->b", p_u, p_i)
+            score = score + jnp.einsum("bk,bk->b", p_u, p_i, precision=HIGHEST)
             return None, losses.map_active(score, hp.active_type)
 
         _, preds = jax.lax.scan(body, None, stacked)

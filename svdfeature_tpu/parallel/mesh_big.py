@@ -1,10 +1,9 @@
 """Mesh big-slab path: sorted-dedup row updates on row-sharded tables.
 
-parallel/mesh.py's base sharded step applies sparse updates with the
-one-hot MXU form, which caps out at ONEHOT_THRESHOLD local rows — above
-that it used to fall back to XLA's serialized TPU scatter (~1 s for 8k
-rows into a 2M-row table; PERF.md "Large tables").  This module removes
-that limit: the per-shard update becomes the same sort → cumsum-dedup →
+parallel/mesh.py's base sharded step applies sparse updates to a
+standard [rows, k] slab, in the one-hot form up to ONEHOT_THRESHOLD
+local rows on backends that ask for it.  This module is the layout for
+slabs above that size: the per-shard update becomes the same sort → cumsum-dedup →
 unique-row write as the single-chip big-table step (ops/big_embed.py),
 applied to each shard's LOCAL slab.  With it, "multi-chip" and "big
 tables" hold at the same time — the regime the reference serves with
@@ -12,8 +11,8 @@ its single uniform O(nnz·k) update loop at any table size
 (solvers/base-solver/apex_svd_base.h:456-462).
 
 Layout.  Slabs use the augmented row format of ops/big_embed.py
-(``[factors | bias | ref_bits | pad]`` to 128 lanes, one aligned DMA per
-row) plus ONE trailing **scratch row per shard**: non-owned ids redirect
+(``[factors | bias | ref_bits | pad]`` to 128 lanes, one row read or
+write per row) plus ONE trailing **scratch row per shard**: non-owned ids redirect
 there, and because the dedup write REPLACES rows (it cannot rely on
 zero-coefficient adds like the one-hot path) the redirect target must be
 a row that tolerates arbitrary overwrites.  Physically the global table
@@ -26,9 +25,9 @@ Per step (mirrors parallel/mesh.py's collective pattern):
      partial (p_u, p_i, bias) → psum over ``model``;
   2. replicated global-bias update with psum'd batch stats over ``data``;
   3. all_gather (ids, coefs, p-vectors, own-flags) over ``data`` — O(B·k)
-     activations over ICI, never table rows — then each shard merges the
-     full entry stream into its slab via ops/big_embed.apply_entries
-     (sorted dedup + one unique-row write, Pallas row DMA on TPU).
+     activations between devices, never table rows — then each shard
+     merges the full entry stream into its slab via
+     ops/big_embed.apply_entries (sorted dedup + one unique-row write).
 
 Parity with the single-device step is pinned by
 tests/test_mesh_big.py; the driver dryrun exercises an
@@ -47,7 +46,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from .. import losses
 from ..ops.big_embed import apply_entries, aug_width, gather_rows
-from ..ops.embed import HyperParams, TrainConsts, TrainState
+from ..ops.embed import HIGHEST, HyperParams, TrainConsts, TrainState
 from .mesh import _count_present, _global_update_psum, _seg_sum
 
 
@@ -167,8 +166,8 @@ def _fwd_big(w, g, batch, hp, lr, consts, step0, lo, n_real, k,
     psum, before the dot — the SVD++ feedback injection
     (prepare_svdpp, apex_svd_base.h:506-509)."""
     (lu, uv, _), (li, iv, _) = _local_entries(batch, lo, n_real)
-    rows_u = gather_rows(w, lu, row_dma=hp.row_dma)  # [B,S,W]
-    rows_i = gather_rows(w, li, row_dma=hp.row_dma)
+    rows_u = gather_rows(w, lu)  # [B,S,W]
+    rows_i = gather_rows(w, li)
     wu, bu = rows_u[..., :k], rows_u[..., k]
     wi, bi = rows_i[..., :k], rows_i[..., k]
     if hp.reg_method >= 4:
@@ -185,18 +184,18 @@ def _fwd_big(w, g, batch, hp, lr, consts, step0, lo, n_real, k,
         else:
             wu = _soft_threshold(wu, (lam_u * el_u)[..., None])
             wi = _soft_threshold(wi, (lam_i * el_i)[..., None])
-    p_u = jnp.einsum("bs,bsk->bk", uv, wu)
-    p_i = jnp.einsum("bs,bsk->bk", iv, wi)
-    bias = jnp.einsum("bs,bs->b", iv, bi)
+    p_u = jnp.einsum("bs,bsk->bk", uv, wu, precision=HIGHEST)
+    p_i = jnp.einsum("bs,bsk->bk", iv, wi, precision=HIGHEST)
+    bias = jnp.einsum("bs,bs->b", iv, bi, precision=HIGHEST)
     if not hp.no_user_bias:
-        bias = bias + jnp.einsum("bs,bs->b", uv, bu)
+        bias = bias + jnp.einsum("bs,bs->b", uv, bu, precision=HIGHEST)
     p_u, p_i, bias = jax.lax.psum((p_u, p_i, bias), "model")
     if p_u_extra is not None:
         p_u = p_u + p_u_extra
     if bias_extra is not None:
         bias = bias + bias_extra
-    score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i)
-    score = score + jnp.einsum("bs,bs->b", batch["g_val"], g[batch["g_idx"]])
+    score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i, precision=HIGHEST)
+    score = score + jnp.einsum("bs,bs->b", batch["g_val"], g[batch["g_idx"]], precision=HIGHEST)
     return p_u, p_i, score, (lu, uv), (li, iv)
 
 
@@ -284,8 +283,8 @@ def _make_step_body_big(hp: HyperParams, n_real: int, n_model: int):
         # apply_entries needs the pre-update rows for every entry; our
         # forward only gathered this data shard's slice, so re-gather the
         # full all-gathered stream from the LOCAL slab (no table comm).
-        raw_u = gather_rows(w, g_lu.reshape(-1), row_dma=hp.row_dma)
-        raw_i = gather_rows(w, g_li.reshape(-1), row_dma=hp.row_dma)
+        raw_u = gather_rows(w, g_lu.reshape(-1))
+        raw_i = gather_rows(w, g_li.reshape(-1))
         # eager modes add the gradient to the un-decayed row (fwd == raw);
         # lazy modes recompute the catch-up from raw + ref bits inside
         # apply_entries, so raw[:, :k] serves as fwd in both cases
@@ -396,18 +395,17 @@ def sharded_predict_big(mesh: Mesh, hp: HyperParams, n_real: int):
 
         def body(_, batch):
             (lu, uv, _), (li, iv, _) = _local_entries(batch, lo, n_real)
-            rows_u = gather_rows(w, lu, row_dma=hp.row_dma)
-            rows_i = gather_rows(w, li, row_dma=hp.row_dma)
-            p_u = jnp.einsum("bs,bsk->bk", uv, rows_u[..., :k])
-            p_i = jnp.einsum("bs,bsk->bk", iv, rows_i[..., :k])
-            bias = jnp.einsum("bs,bs->b", iv, rows_i[..., k])
+            rows_u = gather_rows(w, lu)
+            rows_i = gather_rows(w, li)
+            p_u = jnp.einsum("bs,bsk->bk", uv, rows_u[..., :k], precision=HIGHEST)
+            p_i = jnp.einsum("bs,bsk->bk", iv, rows_i[..., :k], precision=HIGHEST)
+            bias = jnp.einsum("bs,bs->b", iv, rows_i[..., k], precision=HIGHEST)
             if not hp.no_user_bias:
-                bias = bias + jnp.einsum("bs,bs->b", uv, rows_u[..., k])
+                bias = bias + jnp.einsum("bs,bs->b", uv, rows_u[..., k], precision=HIGHEST)
             p_u, p_i, bias = jax.lax.psum((p_u, p_i, bias), "model")
-            score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i)
+            score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i, precision=HIGHEST)
             score = score + jnp.einsum(
-                "bs,bs->b", batch["g_val"], g[batch["g_idx"]]
-            )
+                "bs,bs->b", batch["g_val"], g[batch["g_idx"]], precision=HIGHEST)
             return None, losses.map_active(score, hp.active_type)
 
         _, preds = jax.lax.scan(body, None, stacked)

@@ -24,7 +24,7 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from .. import losses
-from ..ops.embed import HyperParams, TrainConsts, TrainState
+from ..ops.embed import HIGHEST, HyperParams, TrainConsts, TrainState
 from ..ops.svdpp import _fb_writeback
 from .mesh import (
     _apply_row_updates,
@@ -113,8 +113,8 @@ def _make_svdpp_body(
         p_u = p_u + fb_sum[slot]
         if with_bias:
             bias = bias + fb_bias[slot]
-        score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i)
-        score = score + jnp.einsum("bs,bs->b", batch["g_val"], gbias[batch["g_idx"]])
+        score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i, precision=HIGHEST)
+        score = score + jnp.einsum("bs,bs->b", batch["g_val"], gbias[batch["g_idx"]], precision=HIGHEST)
         pred = losses.map_active(score, hp.active_type)
         err = losses.cal_grad(batch["label"], pred, hp.active_type) * batch["weight"]
 
@@ -170,7 +170,8 @@ def _make_svdpp_body(
         else:
             delta_b = None
         # one-hot [F, n_local] writeback (ops/svdpp._fb_writeback: w/b
-        # deltas ride one stacked matmul; .at[].add fallback off-TPU)
+        # deltas ride one stacked matmul in the one-hot form, .at[].add
+        # otherwise)
         cfb_local = {"fb_idx": flocc, "fb_block": cfb["fb_block"], "fb_val": fval}
         w, b = _fb_writeback(w, b, cfb_local, delta, delta_b, with_bias)
 
@@ -385,10 +386,9 @@ def sharded_svdpp_predict(
             p_u = p_u + agg[:, :k][slot]
             if with_bias:
                 bias = bias + agg[:, k][slot]
-            score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i)
+            score = hp.base_score + bias + jnp.einsum("bk,bk->b", p_u, p_i, precision=HIGHEST)
             score = score + jnp.einsum(
-                "bs,bs->b", batch["g_val"], gbias[batch["g_idx"]]
-            )
+                "bs,bs->b", batch["g_val"], gbias[batch["g_idx"]], precision=HIGHEST)
             return None, losses.map_active(score, hp.active_type)
 
         _, preds = jax.lax.scan(body, None, (stacked, chunk_id))

@@ -2,8 +2,8 @@
 user-group solver family.
 
 parallel/svdpp_mesh.py's step body applies its row updates and pool
-writebacks with the one-hot MXU form, which caps out at ONEHOT_THRESHOLD
-local rows; parallel/mesh_big.py removes that limit for the base solver.
+writebacks on standard slabs (one-hot form up to ONEHOT_THRESHOLD local
+rows); parallel/mesh_big.py removes that limit for the base solver.
 This module is their composition — the SVD++ per-batch-refresh step of
 svdpp_mesh (exact; the chunk-carried closed form is an off-mesh
 optimization) with every table-sized read/write routed through the
@@ -95,7 +95,7 @@ def _make_svdpp_body_big(
         own = (loc >= 0) & (loc < n_real)
         locc = jnp.where(own, loc, scratch)
         v = jnp.where(own, sv, 0.0)
-        rows = gather_rows(w, locc, row_dma=hp.row_dma)  # [f_local, W]
+        rows = gather_rows(w, locc)  # [f_local, W]
         agg = _seg_sum_stacked(
             nseg,
             sb,
@@ -181,8 +181,8 @@ def _make_svdpp_body_big(
         payload = jnp.concatenate(
             [dw, pay_b[:, None], cnt_u[:, None], cnt_i[:, None]], axis=1
         )
-        raw_u = gather_rows(w, g_lu.reshape(-1), row_dma=hp.row_dma)
-        raw_i = gather_rows(w, g_li.reshape(-1), row_dma=hp.row_dma)
+        raw_u = gather_rows(w, g_lu.reshape(-1))
+        raw_i = gather_rows(w, g_li.reshape(-1))
         w = apply_entries(
             w, step0, ent_idx, payload, raw_u, raw_i,
             raw_u[:, :k], raw_i[:, :k], lr, consts, hp,
@@ -233,7 +233,7 @@ def _make_svdpp_body_big(
             "fb_block": cfb["fb_block"],
         }
         w = _fb_writeback_big(
-            w, cfb_local, delta, delta_b, with_bias, k, hp.row_dma
+            w, cfb_local, delta, delta_b, with_bias, k
         )
 
         nstep = step0 + _count_present(batch)
@@ -351,7 +351,7 @@ def sharded_svdpp_predict_big(
             own = (loc >= 0) & (loc < n_real)
             locc = jnp.where(own, loc, scratch)
             v = jnp.where(own, sv, 0.0)
-            rows = gather_rows(w, locc, row_dma=hp.row_dma)
+            rows = gather_rows(w, locc)
             agg = _seg_sum_stacked(
                 nseg, sb,
                 jnp.concatenate(

@@ -1,4 +1,4 @@
-"""Base SGD solver: the TPU-native SVDFeature trainer.
+"""Base SGD solver: the batched SVDFeature trainer.
 
 Re-design of class SVDFeature (solvers/base-solver/apex_svd_base.h:79-479).
 The trainer owns the model pytree (with dummy padding rows appended), packs
@@ -56,22 +56,11 @@ class SVDFeatureTrainer:
         self.feat_user: Optional[SparseFeatureArray] = None
         self.feat_item: Optional[SparseFeatureArray] = None
         self.batch_size = DEFAULT_BATCH_SIZE
-        # the fused Pallas kernel (ops/pallas_embed.py) keeps the table
-        # VMEM-resident for the whole multi-round run; on for supported
-        # configs on TPU (use_pallas=0 forces the jnp path)
-        self.use_pallas = True
-        # pallas_precise=1: compensated hi/lo forward reads instead of the
-        # default single-pass bf16 (one extra MXU pass per step)
-        self.pallas_precise = False
         self.seed = 10
         # exact_rng=1: init draws come from the bit-exact apex_random port
         # (glibc rand), matching the reference binary's round-0 snapshot
         # byte-for-byte; numpy RandomState otherwise (fast, vectorized)
         self.exact_rng = False
-        # big_sweep: tile-sweep write path for the big-table step
-        # (ops/tile_sweep.py).  -1 = auto (on for batches dense enough
-        # that most tiles are touched anyway), 0 = off, 1 = force on
-        self.big_sweep = -1
         self.round_counter = 0
         self.learning_rate: float = 0.01
         self.model: Optional[SVDModel] = None
@@ -86,7 +75,7 @@ class SVDFeatureTrainer:
         self.mesh_model = 1
         # mesh_big: sorted-dedup big-slab mesh path (parallel/mesh_big.py).
         # -1 = auto (on when a shard's slab exceeds ONEHOT_THRESHOLD rows
-        # on an accelerator), 0 = off, 1 = force on
+        # and the backend's capability row says so), 0 = off, 1 = force on
         self.mesh_big = -1
         self._mesh_big = False
         self._n_real: Optional[int] = None
@@ -104,10 +93,6 @@ class SVDFeatureTrainer:
             self.name_feat_item = val
         if name == "batch_size":
             self.batch_size = int(val)
-        if name == "use_pallas":
-            self.use_pallas = bool(int(val))
-        if name == "pallas_precise":
-            self.pallas_precise = bool(int(val))
         if name == "mesh_data":
             self.mesh_data = int(val)
         if name == "mesh_model":
@@ -118,8 +103,6 @@ class SVDFeatureTrainer:
             self.seed = int(val)
         if name == "exact_rng":
             self.exact_rng = bool(int(val))
-        if name == "big_sweep":
-            self.big_sweep = int(val)
         self.tparam.set_param(name, val)
         self.u_param.set_param(name, val)
         self.i_param.set_param(name, val)
@@ -199,26 +182,7 @@ class SVDFeatureTrainer:
         elif self.hp.big_table:
             from ..ops.big_embed import augment_state
 
-            if self.hp.sweep_table:
-                # whole tiles for the sweep kernel; wd row tables padded
-                # to match (pad rows decay by 0 and are never addressed)
-                self.state = augment_state(
-                    self.state, k, pad_rows_to=self.hp.sweep_tile
-                )
-                n_pad = self.state.w.shape[0]
-                self.consts = dataclasses.replace(
-                    self.consts,
-                    wd_u_row=jnp.pad(
-                        self.consts.wd_u_row,
-                        (0, n_pad - self.consts.wd_u_row.shape[0]),
-                    ),
-                    wd_i_row=jnp.pad(
-                        self.consts.wd_i_row,
-                        (0, n_pad - self.consts.wd_i_row.shape[0]),
-                    ),
-                )
-            else:
-                self.state = augment_state(self.state, k)
+            self.state = augment_state(self.state, k)
 
     def _init_mesh(self) -> None:
         """Shard the trainer over a (mesh_data x mesh_model) device mesh."""
@@ -232,17 +196,11 @@ class SVDFeatureTrainer:
         need = self.mesh_data * self.mesh_model
         devs = jax.devices()
         if len(devs) < need:
-            # default platform may be a single accelerator (e.g. one TPU via
-            # a plugin) while a multi-device CPU platform is also available
-            try:
-                cpus = jax.devices("cpu")
-            except RuntimeError:
-                cpus = []
-            if len(cpus) >= need:
-                devs = cpus
-        if len(devs) < need:
+            # never move to another platform: a mesh that does not fit
+            # the default backend is a configuration error
             raise ValueError(
-                f"mesh_data*mesh_model={need} exceeds {len(devs)} devices"
+                f"mesh_data*mesh_model={need} exceeds the "
+                f"{len(devs)} {devs[0].platform} devices of the default backend"
             )
         self._check_mesh_supported()
         # data-sharded batches need B % mesh_data == 0
@@ -250,17 +208,17 @@ class SVDFeatureTrainer:
             self.batch_size += self.mesh_data - self.batch_size % self.mesh_data
         self._tbl_rows = int(self.state.w.shape[0])
         self._mesh = make_mesh(self.mesh_data, self.mesh_model, devs)
-        # big slabs: above ONEHOT_THRESHOLD local rows the one-hot update
-        # would fall back to XLA's serialized TPU scatter — route to the
-        # sorted-dedup big-slab path instead (parallel/mesh_big.py)
+        # big slabs: above ONEHOT_THRESHOLD local rows the sorted-dedup
+        # big-slab path (parallel/mesh_big.py) takes the updates
+        from .. import backend
         from ..ops.embed import ONEHOT_THRESHOLD
 
-        d0 = self._mesh.devices.flat[0]
-        on_accel = getattr(d0, "platform", "") != "cpu"
         slab = -(-self._tbl_rows // self.mesh_model)
+        auto_big = (
+            slab > ONEHOT_THRESHOLD and backend.capabilities().mesh_big_auto
+        )
         use_big = self.SUPPORTS_MESH_BIG and (
-            self.mesh_big == 1
-            or (self.mesh_big == -1 and slab > ONEHOT_THRESHOLD and on_accel)
+            self.mesh_big == 1 or (self.mesh_big == -1 and auto_big)
         )
         if use_big:
             from ..parallel.mesh_big import (
@@ -270,10 +228,8 @@ class SVDFeatureTrainer:
             )
 
             k = self.model.num_factor
-            is_tpu = getattr(d0, "platform", "") == "tpu" or "TPU" in str(d0)
             self.hp = dataclasses.replace(
-                self.hp, num_factor=k, row_dma=is_tpu,
-                big_table=False, sweep_table=False,
+                self.hp, num_factor=k, big_table=False
             )
             self._mesh_big = True
             self.state, self._n_real = shard_state_big(self.state, self._mesh, k)
@@ -292,7 +248,7 @@ class SVDFeatureTrainer:
 
     def _build_hp(self) -> HyperParams:
         p = self.model.param
-        from ..ops.embed import ONEHOT_THRESHOLD, default_device_is_tpu
+        from ..ops.embed import ONEHOT_THRESHOLD
 
         # the sorted-dedup big-table path applies off-mesh only (the mesh
         # path row-shards the table into per-device slabs instead)
@@ -301,22 +257,9 @@ class SVDFeatureTrainer:
             and self.model.num_rows + 1 > ONEHOT_THRESHOLD
             and self.mesh_data * self.mesh_model == 1
         )
-        # tile-sweep auto rule: worthwhile once the batch's entries would
-        # touch most tiles anyway (>= ~ECAP/2 entries per tile on average
-        # at the minimum 2 entries/example); sparse batches keep the
-        # latency-bound sorted-dedup step, which touches only its rows
-        from ..ops.tile_sweep import SWEEP_ECAP, SWEEP_TILE
-
-        n_tiles = -(-(self.model.num_rows + 1) // SWEEP_TILE)
-        sweep_auto = 2 * self.batch_size >= n_tiles * SWEEP_ECAP // 2
-        sweep = big and (
-            self.big_sweep == 1 or (self.big_sweep == -1 and sweep_auto)
-        )
         return HyperParams(
             big_table=big,
             num_factor=p.num_factor if big else 0,
-            sweep_table=sweep,
-            row_dma=big and default_device_is_tpu(),
             active_type=self.mtype.active_type,
             no_user_bias=p.no_user_bias,
             reg_method=self.tparam.reg_method,
@@ -389,15 +332,6 @@ class SVDFeatureTrainer:
                 num_item=m.param.num_item,
             )
             arrays = packed.arrays()
-            if self.hp is not None and self.hp.sweep_table:
-                from ..ops.tile_sweep import attach_sweep_plans
-
-                arrays = attach_sweep_plans(
-                    arrays,
-                    int(self.state.w.shape[0]),
-                    self.hp.sweep_tile,
-                    self.hp.sweep_ecap,
-                )
             if self._mesh is not None:
                 # multi-process: each host stages only its data slice
                 from ..parallel.mesh import put_process_sharded
@@ -440,17 +374,7 @@ class SVDFeatureTrainer:
             seg_caps=self._stream_seg_caps(max_nnz),
             min_batches=min_batches,
         )
-        arrays = packed.arrays()
-        if self.hp is not None and self.hp.sweep_table:
-            from ..ops.tile_sweep import attach_sweep_plans
-
-            arrays = attach_sweep_plans(
-                arrays,
-                int(self.state.w.shape[0]),
-                self.hp.sweep_tile,
-                self.hp.sweep_ecap,
-            )
-        return arrays, chunk.num_row
+        return packed.arrays(), chunk.num_row
 
     def stage_chunk(self, arrays):
         """Device staging for one packed chunk: data-sharded over the mesh
@@ -518,11 +442,7 @@ class SVDFeatureTrainer:
 
     def update_rounds(self, ds: CSRDataset, num_rounds: int) -> None:
         """Run num_rounds full passes in one device dispatch, applying the
-        per-round lr decay schedule (set_round semantics) on device.
-
-        Uses the fully-fused Pallas kernel (ops/pallas_embed.py) when the
-        configuration supports it and the backend is a TPU; config key
-        ``use_pallas=0`` forces the jnp path."""
+        per-round lr decay schedule (set_round semantics) on device."""
         if hasattr(ds, "chunks"):  # streaming: one host-driven pass/round
             for _ in range(num_rounds):
                 self.update_all(ds)
@@ -541,17 +461,6 @@ class SVDFeatureTrainer:
         if self._mesh is not None:
             self.state = self._sharded_rounds(self.state, stacked, lrs, self.consts)
             return
-        from ..ops.embed import default_device_is_tpu
-
-        if self.use_pallas and default_device_is_tpu():
-            from ..ops.pallas_embed import pallas_supported, train_rounds_pallas
-
-            if pallas_supported(self.hp, self.state, stacked):
-                self.state = train_rounds_pallas(
-                    self.state, stacked, lrs, self.consts, self.hp,
-                    precise=self.pallas_precise,
-                )
-                return
         self.state = train_rounds(self.state, stacked, lrs, self.consts, self.hp)
 
     def predict_all(self, ds: CSRDataset) -> np.ndarray:

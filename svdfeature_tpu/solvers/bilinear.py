@@ -106,12 +106,6 @@ class SVDBiLinearTrainer(SVDPPFeatureTrainer):
             )
         return np.asarray(self.W_bi)[:ni]
 
-
-    def _pallas_plus_ok(self, entry) -> bool:
-        # the whole-run Pallas kernel is plain SVD++ — it lacks the
-        # W_bi plugin terms; update_rounds falls to per-round epochs
-        return False
-
     def __init__(self, mtype):
         super().__init__(mtype)
         self.bparam = BParam()

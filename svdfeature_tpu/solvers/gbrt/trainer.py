@@ -100,8 +100,9 @@ class GBRTTrainer:
         self.scale_baseline = 1.0
         self.base_score = 0.0
         self.pred_tree_leaf = -1
-        # device_forward: -1 auto (device walk on TPU for full-model
-        # evals), 0 host numpy walk, 1 force device (ops/gbrt_forward.py)
+        # device_forward: -1 auto (device walk on an accelerator for
+        # full-model evals), 0 host numpy walk, 1 force device
+        # (ops/gbrt_forward.py)
         self.device_forward = -1
         # GBRTTrainParam (lr schedule with min clamp, apex_gbrt.h:36-81)
         self.learning_rate = 0.01
@@ -293,12 +294,16 @@ class GBRTTrainer:
             return False
         if self.device_forward == 1:
             return True
-        # auto: full-model evals on a TPU backend (incremental training
+        # auto: full-model evals on an accelerator (incremental training
         # rounds walk only the newest tree -- the host path is cheaper
         # and avoids per-round recompiles)
-        from ...ops.embed import default_device_is_tpu
+        from ... import backend
 
-        return start == 0 and len(self.trees) > 1 and default_device_is_tpu()
+        return (
+            start == 0
+            and len(self.trees) > 1
+            and backend.capabilities().accelerator
+        )
 
     def forward_all(self, ds: PlusDataset) -> np.ndarray:
         """Raw scores: baseline + sum over trees (cached incrementally)."""

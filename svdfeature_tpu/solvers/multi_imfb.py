@@ -40,8 +40,8 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
         stays 0 throughout (apex_multi_imfb.h:31-194 reduces to
         apex_svd_base.h:484-592), verified to float roundoff
         (tests/test_side_solvers.py).  Such datasets take the WHOLE
-        SVD++ fast path (Pallas whole-run kernel, sort_blocks,
-        rows_per_user, streaming) unless depth-0 updates are disabled."""
+        SVD++ fast path (sort_blocks, rows_per_user, streaming) unless
+        depth-0 updates are disabled."""
         if 0 in self.disable_levels:
             return False
         key = id(ds)
@@ -54,48 +54,6 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
                 plain = False
             self._plain_cache[key] = plain
         return self._plain_cache[key]
-
-    def _pallas_plus_ok(self, entry) -> bool:
-        # plain SVD++ entries (degenerate all-DEFAULT route, 5-tuple)
-        # ride the SVD++ whole-run kernel; stacked entries (6-tuple) ride
-        # the same kernel in D>0 mode (multi-hot context selector + depth
-        # gate, ops/pallas_svdpp.train_rounds_imfb_pallas)
-        if len(entry) == 5:
-            return super()._pallas_plus_ok(entry)
-        from ..ops.embed import default_device_is_tpu
-
-        if not (self.use_pallas and default_device_is_tpu()):
-            return False
-        if (
-            self._mesh is not None
-            or self.model.param.common_feedback_space
-            or self.hp.big_table
-        ):
-            return False
-        stacked, _, fb, _, enabled, overlap = entry
-        if overlap is None:  # carried form needs the disjoint pool space
-            return False
-        from ..ops.pallas_svdpp import pallas_imfb_supported
-
-        return pallas_imfb_supported(
-            self.hp, self.state, stacked, fb, enabled, self.model.off_user
-        )
-
-    def _train_rounds_pallas_plus(self, entry, lrs) -> None:
-        if len(entry) == 5:
-            return super()._train_rounds_pallas_plus(entry, lrs)
-        from ..ops.pallas_svdpp import train_rounds_imfb_pallas
-
-        stacked, chunk_id, fb, _, enabled, overlap = entry
-        self.state = train_rounds_imfb_pallas(
-            self.state, stacked, chunk_id, fb, overlap, enabled, lrs,
-            self.consts, self.hp,
-            self.model.off_user, self.model.off_item,
-            self.tparam.scale_lr_ufeedback,
-            self.tparam.wd_ufeedback,
-            self.tparam.wd_ufeedback_bias,
-            rows_per_user=self.rows_per_user,
-        )
 
     def _stream_round_plus(self, ds) -> None:
         if self._plain_svdpp(ds):
@@ -365,11 +323,6 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
     def _train_packed(self, entry) -> None:
         if len(entry) == 5:  # plain SVD++ entry (degenerate route)
             return super()._train_packed(entry)
-        if self._pallas_plus_ok(entry):
-            self._train_rounds_pallas_plus(
-                entry, jnp.asarray([self.learning_rate], jnp.float32)
-            )
-            return
         stacked, chunk_id, fb, _, enabled, overlap = entry
         if self._mesh is not None:
             M = self.rows_per_user

@@ -5,7 +5,7 @@ Re-design of SVDFeatureRanker (solvers/base-solver/apex_svd_base.h:
 field: ITEM=0 defines a candidate, USER=2 starts a user section, POS=1 /
 BAN=-1 tag candidates, SPEC=3 adds pair-specific scores, PROCESS=4 ranks
 and emits).  Here the protocol is parsed on the host into (a) one candidate
-item matrix and (b) per-user sections, and scoring becomes one MXU matmul
+item matrix and (b) per-user sections, and scoring becomes one matmul
 ``scores = U @ ifactors^T + bias`` over all users at once, with banned
 candidates masked and rank positions computed by score comparison.
 """

@@ -1,7 +1,7 @@
 """Multi-process mesh worker (launched by tests/test_multiprocess.py).
 
 Each process owns 2 CPU devices; together they form a 2x2 (data, model)
-mesh spanning both processes — the CPU stand-in for a 2-host TPU slice.
+mesh spanning both processes — the CPU stand-in for a 2-host cluster.
 Trains the tiny deterministic workload and writes the final table to a
 per-process .npz for the driver to compare against single-process truth.
 """

@@ -3,9 +3,8 @@
 The big-table path must produce the same batched-SGD semantics as the
 general path (ops/embed.train_step) — identical math, different
 execution strategy — for every regularization mode, hierarchy segment
-shapes, duplicates, no_user_bias and nonnegativity.  Runs on CPU (the
-write-rows fallback is a plain .at[].set; the Pallas kernel itself is
-exercised on TPU by bench.py and tests/test_pallas.py).
+shapes, duplicates, no_user_bias and nonnegativity.  chip_smoke.py
+repeats the comparison on the card at the KDD table geometry.
 """
 
 import dataclasses
@@ -151,3 +150,18 @@ def test_sorted_dedup_matches_segment_sum():
     for r, v in got.items():
         np.testing.assert_allclose(v, want[r], atol=1e-5)
     assert set(got) == set(int(x) for x in np.asarray(idx))
+
+
+@pytest.mark.parametrize("reg", [0, 1, 4, 5])
+@pytest.mark.parametrize("B", [256, 1024, 4096])
+def test_big_matches_general_dense_batches(B, reg):
+    """Batches dense enough that every row of a small table is touched
+    many times per step (2B/n = 10-160 entries per row; the density at
+    which the removed tile-sweep write path used to take over): the
+    sorted-dedup step still equals the general step."""
+    state, batch, consts = make_inputs(B + reg, n=50, B=B, Su=1, Si=1)
+    hp = embed.HyperParams(reg_method=reg, reg_global=0, base_score=3.0)
+    lr = jnp.float32(0.002)
+    out_gen = embed.train_step(clone(state), batch, lr, consts, hp)
+    out_big = run_big(clone(state), batch, lr, consts, hp)
+    assert_state_close(out_gen, out_big, atol=5e-5)

@@ -2,6 +2,7 @@
 
 from svdfeature_tpu.config import ConfigReader, ConfigSaver
 from svdfeature_tpu.params import SVDModelParam, SVDTrainParam, SVDTypeParam
+from tests.conftest import DEMO
 
 
 def test_parse_basic():
@@ -29,14 +30,14 @@ def test_parse_no_spaces():
 
 
 def test_parse_reference_demo_confs():
-    for conf in [
-        "/root/reference/demo/basicMF/basicMF.conf",
-        "/root/reference/demo/implicitFeedback/implicitFeedback.conf",
-        "/root/reference/demo/pairwiseRank/pairwiseRank.conf",
-        "/root/reference/demo/neighborhoodModel/neighborhoodModel.conf",
-        "/root/reference/demo/binaryClassification/binaryClassification.conf",
-    ]:
-        items = dict(ConfigReader(conf).items())
+    """The demo confs keep the reference's syntax and keys."""
+    confs = sorted(DEMO.glob("*/*.conf"))
+    assert [c.stem for c in confs] == [
+        "basicMF", "binaryClassification", "implicitFeedback",
+        "neighborhoodModel", "pairwiseRank",
+    ]
+    for conf in confs:
+        items = dict(ConfigReader(str(conf)).items())
         assert items["num_user"] == "943"
         assert items["num_item"] == "1682"
         assert items["num_factor"] == "64"

@@ -1,5 +1,6 @@
-"""The fused one-hot fast path (ops/embed._train_step_fused — the TPU hot
-configuration) must match the general train step numerically."""
+"""The fused one-hot form (ops/embed._train_step_fused, taken where the
+backend's capability row asks for one-hot scatters) must match the
+general train step numerically."""
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +50,7 @@ def test_fused_step_matches_general(no_user_bias, nonneg):
 
 def test_fb_onehot_forms_match_plain():
     """The one-hot matmul forms of the SVD++ feedback aggregation and pool
-    writeback (TPU path) must match the segment_sum/scatter forms."""
+    writeback must match the segment_sum/scatter forms."""
     from svdfeature_tpu.ops.svdpp import _fb_aggregates, _fb_writeback
 
     rng = np.random.RandomState(0)

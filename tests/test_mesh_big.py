@@ -40,7 +40,7 @@ def _shard_batch(batch, mesh):
 
 
 def _big_hp(hp, k):
-    return dataclasses.replace(hp, num_factor=k, big_table=False, row_dma=False)
+    return dataclasses.replace(hp, num_factor=k, big_table=False)
 
 
 @pytest.mark.parametrize("n_data,n_model", [(1, 1), (2, 1), (1, 2), (4, 2)])

@@ -240,7 +240,7 @@ def test_pair_dense_layout_trains():
 
 def _noglobal_pair_ds(seed=4):
     """Skewed pair blocks with NO global features (skeleton-eligible);
-    16 users so the dense layout packs GS = 16 x 8 = 128 (Pallas-sized)."""
+    16 users so the dense layout packs GS = 16 x 8 = 128."""
     rng = np.random.RandomState(seed)
     rows, fb = [], []
     for u in range(16):
@@ -382,16 +382,24 @@ def test_sample_offsets_law():
         assert (plane_offs[0] != plane_offs[1]).any()
 
 
-def test_pair_host_multi_path_trains_interpret(monkeypatch):
-    """End-to-end host multi-round path (_pair_host_multi_ok ->
+@pytest.fixture
+def accelerator(monkeypatch):
+    """The capability row of an accelerator, on the CPU: turns on the
+    multi-round pair dispatch (solvers/svdpp._pair_multi_ok)."""
+    import dataclasses
+
+    from svdfeature_tpu import backend
+
+    caps = dataclasses.replace(backend.capabilities(), accelerator=True)
+    monkeypatch.setattr(backend, "capabilities", lambda: caps)
+    return caps
+
+
+def test_pair_host_multi_path_trains_interpret(accelerator):
+    """End-to-end host multi-round path (_pair_multi_ok ->
     _train_pair_rounds_host): batched permutation-offset sampling +
-    in-dispatch plane assembly + whole-run Pallas kernel, interpret
-    mode, learns the pair ordering like the per-round path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from svdfeature_tpu.ops import embed
-
-    monkeypatch.setattr(embed, "default_device_is_tpu", lambda: True)
+    in-dispatch plane assembly + K plain epochs per dispatch, on the
+    CPU, learns the pair ordering like the per-round path."""
     ds = _noglobal_pair_ds()
     tr = _mini_rank_trainer(
         [("users_per_batch", "16"), ("num_global", "0"),
@@ -399,36 +407,27 @@ def test_pair_host_multi_path_trains_interpret(monkeypatch):
          ("learning_rate", "0.02")]
     )
     src = PairSource(ds, IteratorConfig(), seed=9)
-    with pltpu.force_tpu_interpret_mode():
-        tr._apply_pair_layout()
-        assert tr._pair_host_multi_ok(src)
-        tr.update_rounds(src, 10)
+    tr._apply_pair_layout()
+    assert tr._pair_multi_ok(src)
+    tr.update_rounds(src, 10)
     # the multi path ran (geometry cached on the skeleton), over 2 blocks
     assert tr._pair_sk is not None and "geo" in tr._pair_sk
     p = tr.predict_all(PairSource(ds, IteratorConfig(), seed=31).epoch_dataset())
     assert np.mean(p > 0.5) > 0.9
 
 
-def test_pair_device_path_trains_interpret(monkeypatch):
+def test_pair_device_path_trains_interpret(accelerator):
     """End-to-end device path (_pair_device_ok -> _train_pair_rounds_device):
-    on-device resampling + whole-run Pallas kernel, interpret mode, learns
-    the pair ordering like the host path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from svdfeature_tpu.ops import embed
-
-    monkeypatch.setattr(embed, "default_device_is_tpu", lambda: True)
+    on-device resampling + R plain epochs in one dispatch, on the CPU,
+    learns the pair ordering like the host path."""
     ds = _noglobal_pair_ds()
-    # sized so pallas_svdpp_supported holds: GS = 16 users x 8 rows = 128,
-    # table rows clear the padded feedback slab
     tr = _mini_rank_trainer(
         [("users_per_batch", "16"), ("num_global", "0"),
          ("num_user", "60"), ("num_item", "100"), ("num_ufeedback", "130"),
          ("learning_rate", "0.02"), ("rank_device_sample", "1")]
     )
     src = PairSource(ds, IteratorConfig(), seed=9)
-    with pltpu.force_tpu_interpret_mode():
-        tr.update_rounds(src, 10)
+    tr.update_rounds(src, 10)
     assert tr._pair_sk is not None and "sampler" in tr._pair_sk
     p = tr.predict_all(PairSource(ds, IteratorConfig(), seed=31).epoch_dataset())
     assert np.mean(p > 0.5) > 0.9
@@ -469,12 +468,9 @@ def test_pair_mesh_matches_single():
     )
 
 
-def test_pair_multi_path_zero_rounds_noop(monkeypatch):
+def test_pair_multi_path_zero_rounds_noop(accelerator):
     """update_rounds(src, 0) on the multi-round host-sampled path is a
     no-op (regression: blocks[0] IndexError on an empty lr schedule)."""
-    from svdfeature_tpu.ops import embed
-
-    monkeypatch.setattr(embed, "default_device_is_tpu", lambda: True)
     ds = _noglobal_pair_ds()
     tr = _mini_rank_trainer(
         [("users_per_batch", "16"), ("num_global", "0"),
@@ -513,16 +509,13 @@ def test_pair_big_table_per_round_matches_small(monkeypatch):
     np.testing.assert_allclose(p1, p2, rtol=1e-4, atol=1e-5)
 
 
-def test_pair_big_multi_path_trains(monkeypatch):
-    """Big-table host multi-round path: _pair_host_multi_ok admits big
-    tables (augmented epoch instead of the VMEM Pallas kernel inside
-    _pair_multi_train), the candidate-derived chunk_users plan engages
-    the user-carry variant, and the model learns the pair ordering."""
-    from jax.experimental.pallas import tpu as pltpu
-
+def test_pair_big_multi_path_trains(monkeypatch, accelerator):
+    """Big-table host multi-round path: _pair_multi_ok admits big
+    tables (the augmented epoch inside _pair_multi_train), the
+    candidate-derived chunk_users plan engages the user-carry variant,
+    and the model learns the pair ordering."""
     from svdfeature_tpu.ops import embed
 
-    monkeypatch.setattr(embed, "default_device_is_tpu", lambda: True)
     monkeypatch.setattr(embed, "ONEHOT_THRESHOLD", 4)
     ds = _noglobal_pair_ds()
     tr = _mini_rank_trainer(
@@ -532,12 +525,61 @@ def test_pair_big_multi_path_trains(monkeypatch):
     )
     assert tr.hp.big_table
     src = PairSource(ds, IteratorConfig(), seed=9)
-    with pltpu.force_tpu_interpret_mode():  # hp.row_dma writer on CPU
-        tr._apply_pair_layout()
-        assert tr._pair_host_multi_ok(src)
-        assert not tr._pair_sk["use_pallas"]  # the big epoch, not the kernel
-        tr.update_rounds(src, 10)
+    tr._apply_pair_layout()
+    assert tr._pair_multi_ok(src)
+    tr.update_rounds(src, 10)
     assert "geo" in tr._pair_sk
     assert "chunk_users" in tr._pair_sk["fb"]  # carry engaged
     p = tr.predict_all(PairSource(ds, IteratorConfig(), seed=31).epoch_dataset())
     assert np.mean(p > 0.5) > 0.9
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("R", [1, 2, 3])
+def test_pair_rounds_in_one_dispatch_match_per_round(monkeypatch, R, big):
+    """R rounds in one dispatch (per-round sampled planes stacked
+    [R*T, GS], a lax.scan of the plain epoch) train exactly like R
+    single-round dispatches on the same sampled pairs — the contract of
+    the multi-round pair path (solvers/svdpp._train_rounds_plus)."""
+    import jax
+    import jax.numpy as jnp
+
+    from svdfeature_tpu.ops import embed
+    from svdfeature_tpu.solvers.svdpp import _pair_assemble_train
+
+    if big:
+        monkeypatch.setattr(embed, "ONEHOT_THRESHOLD", 4)
+    ds = _noglobal_pair_ds()
+    tr = _mini_rank_trainer(
+        [("users_per_batch", "16"), ("num_global", "0"),
+         ("num_user", "60"), ("num_item", "100"), ("num_ufeedback", "130"),
+         ("learning_rate", "0.02")]
+    )
+    assert tr.hp.big_table == big
+    src = PairSource(ds, IteratorConfig(), seed=9)
+    tr._apply_pair_layout()
+    assert tr._pair_skeleton_ok(src)
+    sk = tr._build_pair_skeleton(src)
+    flats = [tr._pair_flats(src, sk) for _ in range(R)]
+    lrs = [0.02 * 0.9 ** r for r in range(R)]
+    common = (tr.consts, sk["dev"], sk["chunk_id"], sk["fb"], sk["overlap"],
+              tr._fbh())
+
+    one = _pair_assemble_train(
+        jax.tree.map(jnp.copy, tr.state),
+        jnp.concatenate([f[0] for f in flats]),
+        jnp.concatenate([f[1] for f in flats]),
+        jnp.asarray(lrs, jnp.float32), *common, hp=tr.hp, M=sk["M"],
+    )
+    seq = jax.tree.map(jnp.copy, tr.state)
+    for (fp, fn), lr in zip(flats, lrs):
+        seq = _pair_assemble_train(
+            seq, fp, fn, jnp.asarray([lr], jnp.float32), *common,
+            hp=tr.hp, M=sk["M"],
+        )
+    for name in ("w", "b", "g"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(one, name)), np.asarray(getattr(seq, name)),
+            rtol=1e-5, atol=1e-6, err_msg=name,
+        )
+    assert int(one.step) == int(seq.step)

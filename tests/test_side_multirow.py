@@ -135,7 +135,7 @@ def test_bilinear_multirow_big_table_matches_small(monkeypatch):
         small.update_all(ds)
     monkeypatch.setattr(embed, "ONEHOT_THRESHOLD", 4)
     big = make_bi_trainer(dict(rows_per_user=2))
-    assert big.hp.big_table and not big.hp.sweep_table
+    assert big.hp.big_table
     for _ in range(3):
         big.update_all(ds)
     small._sync_model_from_state()
@@ -232,7 +232,7 @@ def test_imfb_multirow_big_table_matches_small(monkeypatch):
         small.update_all(ds)
     monkeypatch.setattr(embed, "ONEHOT_THRESHOLD", 4)
     big = make_imfb_trainer(dict(rows_per_user=2))
-    assert big.hp.big_table and not big.hp.sweep_table
+    assert big.hp.big_table
     for _ in range(3):
         big.update_all(ds)
     small._sync_model_from_state()

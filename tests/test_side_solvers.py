@@ -209,7 +209,7 @@ def test_imfb_routes_big_table(monkeypatch, reg):
     p1 = tr1.predict_all(ds)
     monkeypatch.setattr(embed, "ONEHOT_THRESHOLD", 4)
     tr2 = run()
-    assert tr2.hp.big_table and not tr2.hp.sweep_table
+    assert tr2.hp.big_table
     p2 = tr2.predict_all(ds)
     np.testing.assert_allclose(p2, p1, rtol=1e-4, atol=1e-5)
     tr1._sync_model_from_state()
@@ -239,7 +239,7 @@ def test_bilinear_routes_big_table(monkeypatch, reg):
 
     monkeypatch.setattr(embed, "ONEHOT_THRESHOLD", 4)
     tr2 = make(SVDBiLinearTrainer, **kw)
-    assert tr2.hp.big_table and not tr2.hp.sweep_table
+    assert tr2.hp.big_table
     for _ in range(3):
         tr2.update_all(ds)
     np.testing.assert_allclose(

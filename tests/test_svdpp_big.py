@@ -2,9 +2,8 @@
 
 train_epoch_plus_big must reproduce the train_epoch_plus trajectory —
 same chunk-carried algorithm, augmented-table execution — across bias
-modes, reg modes, rows_per_user and feedback weight decay.  Runs on CPU
-(write_rows_unique falls back to .at[].set; the DMA kernel itself is
-covered by tests/test_pallas.py and bench.py on TPU).
+modes, reg modes, rows_per_user and feedback weight decay.
+chip_smoke.py repeats the comparison on the card at the KDD geometry.
 """
 
 import dataclasses
@@ -70,7 +69,7 @@ def run_both(tr, ds, epochs=3, rows_per_user=1):
     )
     n = int(tr.state.w.shape[0])
     hp_big = dataclasses.replace(
-        tr.hp, big_table=True, num_factor=K, row_dma=False, sweep_table=False
+        tr.hp, big_table=True, num_factor=K
     )
     args_big = (
         jnp.float32(0.01), tr.consts, hp_big,
@@ -141,7 +140,7 @@ def test_solver_routes_big_table(monkeypatch):
 
     monkeypatch.setattr(embed, "ONEHOT_THRESHOLD", 4)
     tr2, _ = make_trainer(seed=11)
-    assert tr2.hp.big_table and not tr2.hp.sweep_table
+    assert tr2.hp.big_table
     assert tr2.state.w.ndim == 2 and tr2.state.b.shape == (0,)
     tr2.update_rounds(ds, 2)
     p2 = tr2.predict_all(ds)
@@ -205,7 +204,7 @@ def test_big_epoch_carry_users_matches_small(rows_per_user):
     )
     n = int(tr.state.w.shape[0])
     hp_big = dataclasses.replace(
-        tr.hp, big_table=True, num_factor=K, row_dma=False, sweep_table=False
+        tr.hp, big_table=True, num_factor=K
     )
     args_big = (
         jnp.float32(0.01), tr.consts, hp_big,
@@ -242,7 +241,7 @@ def test_big_epoch_carry_no_user_bias_nonneg():
     chunk_id = stacked.pop("chunk_id")
     n = int(tr.state.w.shape[0])
     hp_big = dataclasses.replace(
-        tr.hp, big_table=True, num_factor=K, row_dma=False, sweep_table=False
+        tr.hp, big_table=True, num_factor=K
     )
     args = (
         jnp.float32(0.01), tr.consts, tr.hp,

@@ -373,7 +373,7 @@ def test_svdpp_trainer_mesh_multirow_lazy_config_path():
 
 
 def test_sharded_svdpp_onehot_branch(monkeypatch):
-    """The TPU one-hot forms of the sharded reductions/writebacks
+    """The one-hot forms of the sharded reductions/writebacks
     (mesh._seg_sum/_seg_sum_stacked, embed._scatter_rows/_scatter_vals,
     svdpp._fb_writeback inside the mesh step) must match the scatter
     branch bit-for-bit-ish — forced on CPU by patching the selector."""
