@@ -17,20 +17,24 @@ checks what comes out.  Phases of the one-card run:
           with .at[].add scatters, standard [N, k] layout) under
           Precision.HIGHEST; then the normal trainer runs a few rounds
           and the RMSE must fall;
+  gbrt    RegGBRT (extend_type=31) on the implicitFeedback data through
+          the CLIs; the saved model is evaluated with the device tree
+          walk (ops/gbrt_forward.py, the default on the card) and with
+          the host walk (device_forward=0): both must give the RMSE of
+          golden/gbrt_reg.rmse.tsv;
   tests   the card-only tests (pytest -m gpu).
 
 ``--four`` runs only the mesh path on four cards, each configuration
 against the single-card trajectory from the same process: basicMF with
 mesh_data=4, and bigTable with mesh_model=4 (big slabs,
-parallel/mesh_big.py).  ``--only demos,kdd`` runs a subset of the
-one-card phases.
+parallel/mesh_big.py).
 
 One JAX process drives the card(s).  The last line of standard output
 is ``{"ok": true, "device": {...}}``.  A failed phase, a missed
 tolerance, a machine without a GPU, or a copy of this file outside a
 checkout of the repository exits non-zero without that line.
 
-Usage:  python chip_smoke.py [--four] [--only PHASE[,PHASE...]]
+Usage:  python chip_smoke.py [--four]
 """
 
 import contextlib
@@ -47,7 +51,6 @@ import traceback
 
 ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / ".smoke"  # listed in .gitignore; removed at the end
-ONE_CARD_PHASES = ("demos", "kdd", "tests")
 
 # One step of a big-table form against the plain reference, max |diff|
 # per array, in f32.  Both compute the same updates and sum a row's
@@ -404,6 +407,85 @@ def phase_kdd(ctx):
     kdd_big_svdpp(ctx, bench)
 
 
+# ---- GBRT ---------------------------------------------------------------------
+
+# RegGBRT on the implicitFeedback data with the tree parameters
+# golden/gbrt_reg.rmse.tsv was recorded at by the reference binary
+GBRT_KEYS = [
+    "extend_type=31", "num_spec_sparse=943", "learning_rate=0.3",
+    "min_split_loss=1", "min_split_instance=100", "min_child_instance=20",
+    "min_child_weight=5", "min_split_weight=10", "max_depth=5",
+    "rt_loss_type=1",
+]
+# The exact-greedy fit runs on the host and is deterministic: the host
+# walk reproduces the reference's six printed decimals (the bound of
+# tests/test_golden_full.py).  The device walk sums the same f32 leaf
+# values in another order; 1e-5 on the RMSE is f32 rounding over 6
+# trees, while one row sent down a wrong branch moves it by far more.
+GBRT_RMSE_TOL = 5e-6
+GBRT_WALK_TOL = 1e-5
+
+
+def phase_gbrt(ctx):
+    from svdfeature_tpu.cli import svd_feature, svd_feature_infer
+    from svdfeature_tpu.ops import gbrt_forward
+
+    golden = {
+        int(r): float(v)
+        for r, v in (ln.split() for ln in
+                     (ROOT / "golden" / "gbrt_reg.rmse.tsv").read_text().splitlines())
+    }
+    rounds = max(golden)
+    d = WORK / "gbrt"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    conf = "implicitFeedback.conf"
+    shutil.copy(ROOT / "demo" / "implicitFeedback" / conf, d)
+    for src, dst in DEMOS["implicitFeedback"]["files"]:
+        gunzip(src, d / dst)
+    walks = []
+    device_walk = gbrt_forward.forward_trees
+
+    def counted_walk(*a, **kw):
+        walks.append(1)
+        return device_walk(*a, **kw)
+
+    got, walked = {}, {}
+    with cwd(d):
+        build_buffers("implicitFeedback")
+        t0 = time.perf_counter()
+        svd_feature.main([conf, f"num_round={rounds}", "silent=1", *GBRT_KEYS])
+        train_s = time.perf_counter() - t0
+        gbrt_forward.forward_trees = counted_walk
+        try:
+            for walk, extra in (("device", []), ("host", ["device_forward=0"])):
+                n0 = len(walks)
+                t0 = time.perf_counter()
+                svd_feature_infer.main(
+                    [conf, f"start={rounds}", f"end={rounds + 1}",
+                     f"log_eval={walk}.tsv", *GBRT_KEYS, *extra])
+                eval_s = time.perf_counter() - t0
+                rnd, val = pathlib.Path(f"{walk}.tsv").read_text().split()
+                check(int(rnd) == rounds, f"gbrt: evaluated model {rnd}")
+                got[walk], walked[walk] = float(val), len(walks) > n0
+                log(f"  [gbrt] {walk} walk: RMSE@{rounds} {got[walk]:.6f} golden "
+                    f"{golden[rounds]:.6f} (eval {eval_s:.1f} s incl. compile; "
+                    f"{ctx['card']})")
+        finally:
+            gbrt_forward.forward_trees = device_walk
+    log(f"  [gbrt] {rounds} trees trained on the host in {train_s:.1f} s; "
+        f"|device - host| {abs(got['device'] - got['host']):.2e} "
+        f"(tol {GBRT_WALK_TOL:.0e}); |host - golden| "
+        f"{abs(got['host'] - golden[rounds]):.2e} (tol {GBRT_RMSE_TOL:.0e})")
+    check(walked["device"], "gbrt: the default evaluation did not take the device walk")
+    check(not walked["host"], "gbrt: device_forward=0 still took the device walk")
+    check(abs(got["host"] - golden[rounds]) <= GBRT_RMSE_TOL,
+          f"gbrt: host walk RMSE {got['host']} vs golden {golden[rounds]}")
+    check(abs(got["device"] - got["host"]) <= GBRT_WALK_TOL,
+          f"gbrt: device walk RMSE {got['device']} vs host {got['host']}")
+    shutil.rmtree(d, ignore_errors=True)
+
+
 # ---- card-only tests ------------------------------------------------------------
 
 
@@ -496,13 +578,10 @@ def fail(msg):
 
 
 def main(argv):
+    unknown = set(argv) - {"--four"}
+    if unknown:
+        fail(f"unknown arguments {sorted(unknown)}; usage: chip_smoke.py [--four]")
     four = "--four" in argv
-    only = None
-    if "--only" in argv:
-        only = argv[argv.index("--only") + 1].split(",")
-        bad = set(only) - set(ONE_CARD_PHASES)
-        if bad:
-            fail(f"unknown phases {sorted(bad)}; choose from {ONE_CARD_PHASES}")
     if not (ROOT / "svdfeature_tpu" / "__init__.py").is_file():
         fail(f"no svdfeature_tpu package beside {__file__}: run from a checkout")
     sys.path.insert(0, str(ROOT))
@@ -527,9 +606,8 @@ def main(argv):
     if four:
         phases = [("four", phase_four)]
     else:
-        names = only or list(ONE_CARD_PHASES)
-        table = {"demos": phase_demos, "kdd": phase_kdd, "tests": phase_tests}
-        phases = [(n, table[n]) for n in names]
+        phases = [("demos", phase_demos), ("kdd", phase_kdd),
+                  ("gbrt", phase_gbrt), ("tests", phase_tests)]
 
     failed = []
     try:

@@ -24,11 +24,20 @@ The A/B runs basicMF and implicitFeedback with the one-hot form forced
 on and off (backend.override; both at Precision.HIGHEST) in the order
 A B B A, in this one process.
 
+--big-ab instead compares three forms of the big tables, each in turn
+(A B C C B A): the sorted-dedup step on rows aligned to 8 floats (the
+layout, ops/big_embed.ROW_ALIGN), the same step on rows aligned to 128
+floats, and the generic step (standard [N, k] layout, .at[].add
+scatters; the solver with its big-table path switched off).  bigTable
+runs 5 rounds of the full synthetic; the generic SVD++ epoch packs a
+dense [G+1, G+1] overlap per chunk on the host, so bigSvdpp runs 3
+rounds of the first 4 chunks (16,384 users).
+
 Usage (on a machine with a GPU):
-  python scripts/plain_paths.py [--quick] [--out DIR]
+  python scripts/plain_paths.py [--quick | --big-ab] [--out DIR]
 --quick runs basicMF only (a first check of the script on the card).
-Writes DIR/plain_paths.json (default perf_out/, listed in .gitignore)
-and prints a summary.
+Writes DIR/plain_paths.json (DIR/big_ab.json with --big-ab; default
+perf_out/, listed in .gitignore) and prints a summary.
 """
 
 import argparse
@@ -132,10 +141,12 @@ def fixture(name):
         return f.read()
 
 
-def make(cls, mtype_kw, params):
+def make(cls, mtype_kw, params, generic=False):
     from svdfeature_tpu.params import SVDTypeParam
 
     tr = cls(SVDTypeParam(**mtype_kw))
+    if generic:  # standard layout and scatter-add step at any table size
+        tr.SUPPORTS_BIG_TABLE = False
     for n, v in params:
         tr.set_param(n, str(v))
     tr.init_model()
@@ -324,9 +335,85 @@ def ab_forms(w, order=(True, False, False, True)):
     }
 
 
+BIG_FORMS = {
+    "dedup_align8": dict(align=8, generic=False),
+    "dedup_align128": dict(align=128, generic=False),
+    "generic_scatter": dict(align=8, generic=True),
+}
+
+
+def big_ab(bench, trace_root, card):
+    """The big-table forms of the module docstring, A B C C B A per cell."""
+    import gc
+
+    import jax
+
+    from svdfeature_tpu.ops import big_embed
+    from svdfeature_tpu.solvers.base import SVDFeatureTrainer
+    from svdfeature_tpu.solvers.svdpp import SVDPPFeatureTrainer
+
+    bds, dims = bench.make_big_table()
+    pds, pdims = bench.make_big_plus()
+    G = dict(bench.big_plus_params(pdims)).get("users_per_batch", "128")
+    sub = bench.slice_plus_blocks(pds, min(4 * int(G), pds.num_block))
+    cells = {
+        "bigTable": (SVDFeatureTrainer, {}, bench.big_table_params(dims), bds,
+                     bds.slice_rows(0, 4096), 5, 5 * dims["EX"]),
+        "bigSvdpp_4chunks": (
+            SVDPPFeatureTrainer, dict(format_type=1),
+            bench.big_plus_params(pdims), sub,
+            bench.slice_plus_blocks(sub, min(2000, sub.num_block)), 3,
+            3 * sub.rows.num_row),
+    }
+    names = list(BIG_FORMS)
+    out = {}
+    for cell, (cls, mt, params, data, probe, rounds, examples) in cells.items():
+        times = {n: [] for n in names}
+        res = {}
+        for form in names + names[::-1]:
+            spec = BIG_FORMS[form]
+            big_embed.ROW_ALIGN = spec["align"]
+            try:
+                tr = make(cls, mt, params, generic=spec["generic"])
+                assert tr.hp.big_table != spec["generic"], (cell, form)
+                tr.update_rounds(data, rounds)  # pack + compile + warm
+                jax.block_until_ready(tr.state)
+                for _ in range(REPS):
+                    t0 = time.perf_counter()
+                    tr.update_rounds(data, rounds)
+                    jax.block_until_ready(tr.state)
+                    times[form].append(time.perf_counter() - t0)
+                labels = probe.labels if hasattr(probe, "labels") else probe.rows.labels
+                r = res.setdefault(form, {
+                    "row_width": int(tr.state.w.shape[1]),
+                    "check_rmse": round(rmse(tr.predict_all(probe), labels), 6),
+                })
+                if "trace" not in r:
+                    tdir = tempfile.mkdtemp(dir=trace_root, prefix=f"{cell}_{form}_")
+                    with jax.profiler.trace(tdir):
+                        tr.update_rounds(data, rounds)
+                        jax.block_until_ready(tr.state)
+                    r["trace"] = reduce_trace(tdir)
+            finally:
+                big_embed.ROW_ALIGN = BIG_FORMS["dedup_align8"]["align"]
+                tr = None
+                gc.collect()
+        for form in names:
+            res[form].update(
+                best_s=round(min(times[form]), 5),
+                median_s=round(statistics.median(times[form]), 5),
+                examples_per_sec_median=round(
+                    examples / statistics.median(times[form])),
+            )
+        out[cell] = res
+        print(f"[big-ab {cell}] {json.dumps(res)}  ({card})", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--big-ab", action="store_true")
     ap.add_argument("--out", default=str(ROOT / "perf_out"))
     args = ap.parse_args()
 
@@ -353,6 +440,11 @@ def main():
     bench = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bench)
 
+    if args.big_ab:
+        report["big_ab"] = big_ab(bench, trace_root, card)
+        (out_dir / "big_ab.json").write_text(json.dumps(report, indent=1))
+        print(json.dumps({"card": card, "done": sorted(report["big_ab"])}))
+        return
     demos = demo_workloads()
     if args.quick:
         demos = demos[:1]

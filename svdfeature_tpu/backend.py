@@ -13,11 +13,10 @@ The questions the table answers:
   (PERF.md, "one-hot vs scatter"); the CPU scatters natively.
 - ``accelerator``: is an accelerator behind the process?  The
   multi-round pair dispatch (solvers/svdpp.py) and the GBRT device tree
-  walk (solvers/gbrt/trainer.py) pay off only there.  The CPU keeps the
+  walk (solvers/gbrt/trainer.py) pay off only there, and only there does
+  the mesh pick the big-slab layout (parallel/mesh_big.py) by itself
+  once a shard holds more than ONEHOT_THRESHOLD rows.  The CPU keeps the
   per-round pair path, which replays the exact numpy sampling stream.
-- ``mesh_big_auto``: does the mesh pick the big-slab layout
-  (parallel/mesh_big.py) by itself once a shard holds more than
-  ONEHOT_THRESHOLD rows?
 """
 
 from __future__ import annotations
@@ -36,16 +35,11 @@ class Capabilities:
     platform: str
     onehot_scatter: bool
     accelerator: bool
-    mesh_big_auto: bool
 
 
 CAPABILITIES = {
-    "cpu": Capabilities(
-        "cpu", onehot_scatter=False, accelerator=False, mesh_big_auto=False
-    ),
-    "gpu": Capabilities(
-        "gpu", onehot_scatter=False, accelerator=True, mesh_big_auto=True
-    ),
+    "cpu": Capabilities("cpu", onehot_scatter=False, accelerator=False),
+    "gpu": Capabilities("gpu", onehot_scatter=False, accelerator=True),
 }
 
 _detected: Optional[Capabilities] = None

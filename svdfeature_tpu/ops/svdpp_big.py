@@ -50,7 +50,7 @@ from .svdpp import _fb_aggregates
 def _fb_writeback_big(w, cfb, delta_pad, delta_b_pad, with_bias, k):
     """Accumulate the chunk's pool deltas into the augmented table.
 
-    w[fb_idx_f, :k] += delta[fb_block_f] * fval_f (and the bias lane
+    w[fb_idx_f, :k] += delta[fb_block_f] * fval_f (and the bias column
     analogue) — update_ufeedback's writeback (apex_svd_base.h:539-554)
     accumulated over the chunk.  Duplicate pool rows (feedback items
     shared between the chunk's users) are merged by sorted_dedup;
@@ -214,7 +214,7 @@ def _update_uslab(uslab, du, dbu, cu_g, lr, wd_u_g, consts, hp):
     """Per-batch user-row update on the carried chunk slab — the exact
     apply_entries math specialized to user rows (ci = 0, reg_method
     0-3): new_w = (w + dw) * reg(counts), bias analogue, nonneg clamp.
-    The ref lane (k+1) rides through untouched (inert outside lazy
+    The ref column (k+1) rides through untouched (inert outside lazy
     modes)."""
     k = hp.num_factor
     new_w = uslab[:, :k] + du

@@ -11,8 +11,8 @@ its single uniform O(nnz·k) update loop at any table size
 (solvers/base-solver/apex_svd_base.h:456-462).
 
 Layout.  Slabs use the augmented row format of ops/big_embed.py
-(``[factors | bias | ref_bits | pad]`` to 128 lanes, one row read or
-write per row) plus ONE trailing **scratch row per shard**: non-owned ids redirect
+(``[factors | bias | ref_bits | pad]``, big_embed.aug_width, one row
+read or write per row) plus ONE trailing **scratch row per shard**: non-owned ids redirect
 there, and because the dedup write REPLACES rows (it cannot rely on
 zero-coefficient adds like the one-hot path) the redirect target must be
 a row that tolerates arbitrary overwrites.  Physically the global table

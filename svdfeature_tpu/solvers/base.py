@@ -215,7 +215,7 @@ class SVDFeatureTrainer:
 
         slab = -(-self._tbl_rows // self.mesh_model)
         auto_big = (
-            slab > ONEHOT_THRESHOLD and backend.capabilities().mesh_big_auto
+            slab > ONEHOT_THRESHOLD and backend.capabilities().accelerator
         )
         use_big = self.SUPPORTS_MESH_BIG and (
             self.mesh_big == 1 or (self.mesh_big == -1 and auto_big)

@@ -14,7 +14,12 @@ import numpy as np
 
 from ..data.batching_imfb import pack_imfb
 from ..data.csr import TAG_DEFAULT, PlusDataset
-from ..ops.imfb import predict_batches_imfb, train_epoch_imfb
+from ..ops.imfb import (
+    predict_batches_imfb,
+    train_epoch_imfb,
+    train_epoch_imfb_big,
+    train_epoch_imfb_carried,
+)
 from .svdpp import SVDPPFeatureTrainer
 
 
@@ -323,7 +328,7 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
     def _train_packed(self, entry) -> None:
         if len(entry) == 5:  # plain SVD++ entry (degenerate route)
             return super()._train_packed(entry)
-        stacked, chunk_id, fb, _, enabled, overlap = entry
+        stacked, chunk_id, fb, _, enabled, _ = entry
         if self._mesh is not None:
             M = self.rows_per_user
             G = stacked["label"].shape[1]  # slots per batch (G_users * M)
@@ -355,46 +360,25 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
                 jnp.asarray([self.learning_rate], jnp.float32), self.consts,
             )
             return
-        if self.hp.big_table:
-            from ..ops.imfb import train_epoch_imfb_big
+        self._run_epoch(entry)
 
-            self.state = train_epoch_imfb_big(
-                self.state, stacked, chunk_id, fb, enabled,
-                jnp.float32(self.learning_rate), self.consts, self.hp,
-                self.tparam.scale_lr_ufeedback,
-                self.tparam.wd_ufeedback,
-                self.tparam.wd_ufeedback_bias,
-                rows_per_user=self.rows_per_user,
-            )
-            return
+    def _epoch_fn(self, entry):
+        """The stacked epochs (6-tuple entries); plain SVD++ entries take
+        the parent's."""
+        if len(entry) == 5:  # plain SVD++ entry (degenerate route)
+            return super()._epoch_fn(entry)
+        stacked, chunk_id, fb, _, enabled, overlap = entry
+        if self.hp.big_table:
+            return train_epoch_imfb_big, (stacked, chunk_id, fb, enabled), ()
         if overlap is not None:
             # disjoint feedback space: pool work O(chunks) via the
             # carried closed form (ops/imfb.train_epoch_imfb_carried)
-            from ..ops.imfb import train_epoch_imfb_carried
-
-            self.state = train_epoch_imfb_carried(
-                self.state, stacked, chunk_id, fb, overlap, enabled,
-                jnp.float32(self.learning_rate), self.consts, self.hp,
-                self.tparam.scale_lr_ufeedback,
-                self.tparam.wd_ufeedback,
-                self.tparam.wd_ufeedback_bias,
-                rows_per_user=self.rows_per_user,
+            return (
+                train_epoch_imfb_carried,
+                (stacked, chunk_id, fb, overlap, enabled),
+                (),
             )
-            return
-        self.state = train_epoch_imfb(
-            self.state,
-            stacked,
-            chunk_id,
-            fb,
-            enabled,
-            jnp.float32(self.learning_rate),
-            self.consts,
-            self.hp,
-            self.tparam.scale_lr_ufeedback,
-            self.tparam.wd_ufeedback,
-            self.tparam.wd_ufeedback_bias,
-            rows_per_user=self.rows_per_user,
-        )
+        return train_epoch_imfb, (stacked, chunk_id, fb, enabled), ()
 
     def _imfb_mesh_predict_fn(self, G, F, nseg):
         """Sharded stacked inference builder (standard or big slabs)."""

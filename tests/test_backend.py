@@ -21,13 +21,13 @@ ROOT = pathlib.Path(__file__).parent.parent
 def test_cpu_row_gives_plain_forms():
     caps = backend.capabilities_for("cpu")
     assert caps == backend.Capabilities(
-        "cpu", onehot_scatter=False, accelerator=False, mesh_big_auto=False
+        "cpu", onehot_scatter=False, accelerator=False
     )
 
 
 def test_gpu_row_is_an_accelerator():
     caps = backend.capabilities_for("gpu")
-    assert caps.accelerator and caps.mesh_big_auto
+    assert caps.accelerator and not caps.onehot_scatter
 
 
 @pytest.mark.parametrize("platform", ["rocm", "METAL", "neuron", ""])

@@ -222,6 +222,47 @@ def test_imfb_routes_big_table(monkeypatch, reg):
     )
 
 
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("solver", ["imfb", "bilinear"])
+def test_update_rounds_matches_round_loop(monkeypatch, solver, big):
+    """update_rounds on stacked multi-IMFB data scans the stacked epoch
+    (carried or big-table) over rounds in one dispatch; bilinear trains
+    round by round.  Either way the state equals the per-round loop's."""
+    import jax
+
+    from svdfeature_tpu.ops import embed
+
+    base = tiny_plus()
+    blocks = list(base.blocks())
+    nested = [
+        PlusBlock(blocks[0].fb_index[:2], blocks[0].fb_value[:2],
+                  blocks[0].data, extend_tag=TAG_START),
+        PlusBlock(blocks[1].fb_index, blocks[1].fb_value, blocks[1].data,
+                  extend_tag=TAG_END),
+    ] + blocks[2:]
+    ds = PlusDataset.from_blocks(nested) if solver == "imfb" else base
+    if big:
+        monkeypatch.setattr(embed, "ONEHOT_THRESHOLD", 4)
+
+    def build():
+        if solver == "imfb":
+            return make(SVDPPMultiIMFBTrainer, wd_user=0.01, wd_item=0.01)
+        return make(SVDBiLinearTrainer, num_bi_feedback=10, wd_bi_feedback=0.01)
+
+    tr1, tr2 = build(), build()
+    assert tr1.hp.big_table == big
+    entry = tr1._pack_plus(ds)
+    assert len(entry) == 6
+    assert (tr1._epoch_fn(entry) is None) == (solver == "bilinear")
+    tr1.update_rounds(ds, 3)
+    for _ in range(3):
+        tr2.update_all(ds)
+    for a, b in zip(jax.tree.leaves(tr1.state), jax.tree.leaves(tr2.state)):
+        np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6
+        )
+
+
 @pytest.mark.parametrize("reg", [0, 2, 5])
 def test_bilinear_routes_big_table(monkeypatch, reg):
     """Forcing ONEHOT_THRESHOLD below the table size must flip bilinear

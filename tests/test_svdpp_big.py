@@ -172,6 +172,52 @@ def test_solver_common_space_keeps_small_layout(monkeypatch):
     assert tr.state.b.shape[0] > 0
 
 
+# ---- whole-run dispatch (update_rounds) -----------------------------------
+
+
+def _round_loop(tr, ds, rounds):
+    """The per-round reference: one epoch per round at the schedule's lr."""
+    for _ in range(rounds):
+        tr._train_packed(tr._pack_plus(ds))
+        if tr.tparam.decay_learning_rate:
+            tr.learning_rate *= tr.tparam.decay_rate
+
+
+ROUNDS_CASES = {
+    "small": {},
+    "small_decay": {"decay_learning_rate": 1, "decay_rate": 0.8},
+    "small_multirow": {"rows_per_user": 2},
+    "big_carry": {},
+    "big_lazy": {"reg_method": 4},
+    "common_space": {"common_feedback_space": 1, "num_ufeedback": 10},
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUNDS_CASES))
+def test_update_rounds_matches_round_loop(monkeypatch, case):
+    """update_rounds trains a packed dataset's rounds in one dispatch, a
+    scan of the epoch over rounds (solvers/svdpp._scan_epochs); the state
+    must equal the per-round loop's, on both table layouts and on the
+    shared-feedback-space refresh epoch."""
+    from svdfeature_tpu.ops import embed
+
+    if case.startswith("big"):
+        monkeypatch.setattr(embed, "ONEHOT_THRESHOLD", 4)
+    kw = dict(fb_bound=10) if case == "common_space" else {}
+    tr1, ds = make_trainer(seed=21, extra=ROUNDS_CASES[case], **kw)
+    tr2, _ = make_trainer(seed=21, extra=ROUNDS_CASES[case], **kw)
+    assert tr1.hp.big_table == case.startswith("big")
+    if case == "big_carry":
+        assert "chunk_users" in tr1._pack_plus(ds)[2]
+    tr1.update_rounds(ds, 3)
+    _round_loop(tr2, ds, 3)
+    for a, b in zip(jax.tree.leaves(tr1.state), jax.tree.leaves(tr2.state)):
+        np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6
+        )
+    assert tr1.learning_rate == pytest.approx(tr2.learning_rate)
+
+
 # ---- user-carry variant (carry_users=True) --------------------------------
 def _pack_raw(tr, ds, rows_per_user=1):
     from svdfeature_tpu.data.batching_plus import pack_plus
